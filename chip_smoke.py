@@ -14,10 +14,23 @@ Phases, each raising on failure:
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
-     and the launches of each kernel in that run (all must be > 0);
+     and the launches of each kernel in that run;
   5. image: the first frame pair as a 4K image (reduce and expand_score2
      launch, the temporal kernel does not);
-  6. the kernels line, then the result line.
+  6. fixed-gaze foveation: the same clip and its first frame through
+     fvvdp(foveated=True) (expand_contrast and band_score2_fov launch,
+     expand_score2 does not); a 1440x1600 8-frame htc_vive_pro video on
+     the card against device="cpu";
+  7. heatmaps: the 4K image with "threshold" and "raw" maps (the raw map
+     against device="cpu"), 8 frames with a "supra-threshold" uint8 map kept
+     on the device;
+  8. per-channel LUTs: the omega = 5 LUT cut by its last Y knot, the 4K image
+     and 8 frames (band_score launches twice per level per block); a 1080p
+     clip against device="cpu";
+  9. the kernels line, then the result line.
+
+Every path has its own expectation of which kernels must launch and which
+must not; the counts are set to 0 just before it and read just after.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
 CUDA card, and fails at import when the package is not beside it.
@@ -36,9 +49,12 @@ from fovvideovdp_tpu_torch.ops import cuda as cuda_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import _lib
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
+from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+from fovvideovdp_tpu_torch.ops.cuda import expand_contrast as ec
 from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.cuda import temporal as tmp
 from fovvideovdp_tpu_torch.ops.pyramid import K5
+from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 
 H, W, N_FRAMES, FPS = 2160, 3840, 60, 30.0
 GOLDEN_SYNTH_Q = 9.7688   # bench.py: the PyTorch reference's JOD for this clip
@@ -53,6 +69,9 @@ SFU_PER_SM_CLOCK = 16
 # transcendentals per fine pixel in expand_score2: log2 of L_bkg, then
 # 5 per temporal channel (csrc/score_math.cuh:d_beta_log2)
 SFU_PER_PIXEL = 11
+# the same in the band scorers: 1 + 5 per channel
+SFU_PER_PIXEL_1CH = 6
+HEAT_FRAMES = 8           # depth of the heatmap and per-channel-LUT videos
 
 SOURCES = {
     "gausspyr_reduce": dict(
@@ -68,7 +87,24 @@ SOURCES = {
         source="fovvideovdp_tpu_torch/csrc/temporal.cu",
         replaces="fovvideovdp_tpu/ops/pallas/temporal.py:100",
         also_replaces=["fovvideovdp_tpu/ops/pallas/temporal.py:59"]),
+    "expand_contrast": dict(
+        source="fovvideovdp_tpu_torch/csrc/expand_contrast.cu",
+        replaces="fovvideovdp_tpu/ops/pallas/expand.py:49", also_replaces=[]),
+    "band_score": dict(
+        source="fovvideovdp_tpu_torch/csrc/band_score.cu",
+        replaces="fovvideovdp_tpu/ops/pallas/band_score.py:40", also_replaces=[]),
+    "band_score2": dict(
+        source="fovvideovdp_tpu_torch/csrc/band_score.cu",
+        replaces="fovvideovdp_tpu/ops/pallas/band_score.py:62", also_replaces=[]),
+    "band_score2_fov": dict(
+        source="fovvideovdp_tpu_torch/csrc/band_score.cu",
+        replaces="fovvideovdp_tpu/ops/pallas/band_score.py:219", also_replaces=[]),
 }
+# the path whose run gives each kernel's "launches" in the kernels line
+# (band_score2 is on no path of the package: it is held in phase 3 only)
+PATH_OF = {"gausspyr_reduce": "video", "expand_score2": "video", "temporal_pair": "video",
+           "expand_contrast": "foveated_video", "band_score2_fov": "foveated_video",
+           "band_score": "per_channel_video", "band_score2": None}
 
 
 def synth_clip(h, w, n_frames):
@@ -227,10 +263,134 @@ def check_temporal(ct, nt, cr, nr, taps, main_path, cases):
                              f"(carry {ct.shape[0]}): max abs err {err}")
 
 
-def kernel_summary(rows, launches):
+def rel_err(got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+def add_row(cases, row, what):
+    emit(row)
+    cases["rows"].append(row)
+    if not row["ok"]:
+        raise AssertionError(f"{row['case']} disagrees with its plain version at {what}: {row}")
+
+
+def check_expand_contrast(gpyr, n_levels, cases):
+    """Every level of one block's pyramid at C = 4 (the video routes), and
+    frame 0's first two channels at C = 2 (the image routes).  Returns the
+    C = 4 contrast levels [(contrast, L_bkg)] for the band scorers."""
+    levels = []
+    for bb in range(n_levels):
+        for C in (4, 2):
+            if C == 4:
+                fine, coarse = gpyr[bb], gpyr[bb + 1]
+            else:
+                fine = gpyr[bb][:1, :2].contiguous()
+                coarse = gpyr[bb + 1][:1, :2].contiguous()
+            got_c, got_l = ec.expand_contrast(fine, coarse)
+            want_c, want_l = ec.expand_contrast_plain(fine, coarse)
+            torch.cuda.synchronize()
+            err = max((got_c - want_c).abs().max().item(), (got_l - want_l).abs().max().item())
+            ok = bool(torch.allclose(got_c, want_c, rtol=2e-5, atol=1e-4)
+                      and torch.allclose(got_l, want_l, rtol=1e-5, atol=1e-4))
+            del want_c, want_l
+            ms = time_ms(lambda: ec.expand_contrast(fine, coarse))
+            plain_ms = time_ms(lambda: ec.expand_contrast_plain(fine, coarse), runs=5, warmup=1)
+            nbytes = 4 * (fine.numel() + coarse.numel() + got_c.numel() + got_l.numel())
+            b_ms, b_by = bound(nbytes, 70 * got_l.numel(), FP32_FLOP_PER_S)
+            add_row(cases, dict(
+                case="expand_contrast", shape=list(fine.shape), max_abs_err=err,
+                tolerance="contrast rtol 2e-5 atol 1e-4, L_bkg rtol 1e-5 atol 1e-4", ok=ok,
+                launches_per_call=1, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, main_path=C == 4), f"level {bb}, C = {C}")
+            if C == 4:
+                levels.append((got_c, got_l))
+    return levels
+
+
+def check_band_scores(levels, core_pc, core_2, core_fov, fov_tabs, sfu_rate, cases):
+    """band_score (per-channel LUT core's tables, both channels), band_score2
+    (the default core's shared-grid tables) and band_score2_fov (the
+    fixation point's per-pixel tables) at every level of one block."""
+    for bb, (band, L_bkg) in enumerate(levels):
+        L = L_bkg[:, 0]
+        Fr, _, h, w = band.shape
+        px = Fr * h * w
+        runs = []
+        for cc in range(2):
+            T, R = band[:, 2 * cc], band[:, 2 * cc + 1]
+            table, meta = core_pc._channel_tables[bb][cc], core_pc._channel_meta[bb][cc]
+            q = (meta.q_s, meta.q_t)[cc]
+            runs.append(("band_score", f"channel {cc}, n = {table.shape[0]}",
+                         lambda T=T, R=R, t=table, m=meta, q=q: bs.band_score(T, R, L, t, m, q),
+                         lambda T=T, R=R, t=table, m=meta, q=q: bs.band_score_plain(T, R, L, t, m, q),
+                         4 * (3 * px + table.numel() + Fr), SFU_PER_PIXEL_1CH * px, 1e-4))
+        tabs2, meta2 = core_2._score_tables[bb], core_2._meta[bb]
+        runs.append(("band_score2", f"n = {tabs2.shape[1]}",
+                     lambda: bs.band_score2(band, L, tabs2, meta2),
+                     lambda: bs.band_score2_plain(band, L, tabs2, meta2),
+                     4 * (5 * px + tabs2.numel() + 2 * Fr), SFU_PER_PIXEL * px, 1e-4))
+        ts, tt = fov_tabs[bb]
+        metaf = core_fov._fov_meta[bb]
+        runs.append(("band_score2_fov", f"n = {ts.shape[0]}",
+                     lambda: bs.band_score2_fov(band, L, ts, tt, metaf),
+                     lambda: bs.band_score2_fov_plain(band, L, ts, tt, metaf),
+                     4 * (5 * px + ts.numel() + tt.numel() + 2 * Fr), SFU_PER_PIXEL * px, 2e-4))
+        for name, note, kernel, plain, nbytes, sfu, tol in runs:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            rel = rel_err(got, want)
+            err = (got.double() - want.double()).abs().max().item()
+            del got, want
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, runs=3, warmup=1)
+            b_ms, b_by = bound(nbytes, sfu, sfu_rate)
+            add_row(cases, dict(
+                case=name, shape=[Fr, h, w], note=note, max_abs_err=err, max_rel_err=rel,
+                tolerance=f"relative {tol:g} on per-frame sums", ok=rel <= tol,
+                launches_per_call=1, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                main_path=True), f"level {bb} ({note})")
+
+
+def expect_launches(path, launches, must, must_not):
+    """A path's own expectation: kernels that must launch, kernels that must not."""
+    bad = [k for k in must if launches[k] <= 0] + [k for k in must_not if launches[k] != 0]
+    if bad:
+        raise AssertionError(f"{path}: launches of {bad} are wrong: {launches} "
+                             f"(expected > 0: {must}; == 0: {must_not})")
+
+
+def counted(fn):
+    """fn() with the launch counts set to 0 just before and read just after."""
+    cuda_ops.reset_launch_counts()
+    out = fn()
+    return out, cuda_ops.launch_counts()
+
+
+def warm_seconds(fn, runs=3):
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return times, float(np.median(times))
+
+
+def cut_luts(fv):
+    """The metric's LUTs with the omega = 5 one cut by its last Y knot, so
+    that the two temporal channels no longer share a Y grid."""
+    luts = [dict(l) for l in fv._luts]
+    luts[1] = dict(luts[1], Y=luts[1]["Y"][:-1].clone(), Y_log=luts[1]["Y_log"][:-1].clone(),
+                   S_log=luts[1]["S_log"][:-1].clone())
+    return luts
+
+
+def kernel_summary(rows, path_launches):
     """One entry per kernel: the sums over the cases of one main-path block
     (every pyramid level, the carried temporal window), the largest error
-    over all of that kernel's cases."""
+    over all of that kernel's cases, and the launches in the run of the path
+    that owns the kernel (PATH_OF)."""
     out = []
     for name in cuda_ops.KERNELS:
         mine = [r for r in rows if r["case"] == name]
@@ -242,7 +402,8 @@ def kernel_summary(rows, launches):
             name=name, route="cuda", source=SOURCES[name]["source"],
             replaces=SOURCES[name]["replaces"],
             also_replaces=SOURCES[name]["also_replaces"],
-            launches=launches[name],
+            launches=path_launches[PATH_OF[name]][name] if PATH_OF[name] else 0,
+            path=PATH_OF[name] or "none (held against its plain version only)",
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=sum(r["ms"] for r in main),
             plain_ms=sum(r["plain_ms"] for r in main),
@@ -307,19 +468,40 @@ def main():
     R = tmp.temporal_pair(ct, nt, cr, nr, taps)
     gpyr = check_reduce(R, cases)
     check_expand(core, gpyr, sfu_rate, cases)
-    del R, gpyr, ct, cr, nt, nr, vs, empty
+    del R, ct, cr, nt, nr, vs, empty
+    levels = check_expand_contrast(gpyr, core.plan.height, cases)
+    del gpyr
+    fv_fov = fvt.fvvdp(display_name="standard_4k", foveated=True)
+    core_fov = fv_fov._get_core(W, H)
+    centre = (float(W // 2), float(H // 2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fov_tabs = core_fov.fov_tables(centre)
+    torch.cuda.synchronize()
+    emit(dict(phase="fov_tables", seconds=time.perf_counter() - t0,
+              bytes=core_fov.fov_table_bytes(), knots=int(fov_tabs[0][0].shape[0]),
+              cache_entries=core_fov._fov_cache_entries()))
+    fv_pc = fvt.fvvdp(display_name="standard_4k")
+    fv_pc.load_state(fv_pc.parameters, cut_luts(fv_pc))
+    check_band_scores(levels, fv_pc._get_core(W, H), core, core_fov, fov_tabs, sfu_rate,
+                      cases)
+    del levels, fov_tabs
+    core_fov.drop_fov_tables()     # phase 6 builds them again, inside its first call
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     # 4. video through the user's entry point
     B = fv._pick_block_size(H, W, N_FRAMES)   # the block predict will take
+    path_launches = {}
     cuda_ops.reset_launch_counts()
     t0 = time.perf_counter()
     q_video, stats = fv.predict(test_v, ref_v, dim_order="HWCF", frames_per_second=FPS)
     first_s = time.perf_counter() - t0
-    launches = cuda_ops.launch_counts()
-    if not all(launches[k] > 0 for k in cuda_ops.KERNELS):
-        raise AssertionError(f"a kernel of the video path never launched: {launches}")
+    launches = path_launches["video"] = cuda_ops.launch_counts()
+    expect_launches("video", launches,
+                    must=("gausspyr_reduce", "expand_score2", "temporal_pair"),
+                    must_not=("expand_contrast", "band_score", "band_score2",
+                              "band_score2_fov"))
     if not abs(q_video - GOLDEN_SYNTH_Q) <= JOD_TOL:
         raise AssertionError(f"4K clip JOD {q_video} vs the reference's {GOLDEN_SYNTH_Q}")
     q_pc = stats["Q_per_ch"]
@@ -351,9 +533,9 @@ def main():
     img_launches = cuda_ops.launch_counts()
     if not np.isfinite(q_img) or not np.all(np.isfinite(s_img["Q_per_ch"])):
         raise AssertionError(f"4K image JOD {q_img} not finite")
-    if img_launches["gausspyr_reduce"] == 0 or img_launches["expand_score2"] == 0 \
-            or img_launches["temporal_pair"] != 0:
-        raise AssertionError(f"image path launches {img_launches}")
+    expect_launches("image", img_launches, must=("gausspyr_reduce", "expand_score2"),
+                    must_not=("temporal_pair", "expand_contrast", "band_score",
+                              "band_score2", "band_score2_fov"))
     img_times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -364,9 +546,165 @@ def main():
               warm_ms_median=1e3 * float(np.median(img_times)),
               source_ms_median=1e3 * src_s, score_ms_median=1e3 * score_s))
 
-    # 6. kernels line, result line
+    # 6. fixed-gaze foveation: the 4K clip, its first frame, and a VR-sized
+    # video against the CPU
+    img_t, img_r = test_v[..., 0], ref_v[..., 0]
+    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    fov_must = ("gausspyr_reduce", "expand_contrast", "band_score2_fov")
+    fov_not = ("expand_score2", "band_score", "band_score2")
+    (q_fov, s_fov), launches = counted(lambda: fv_fov.predict(test_v, ref_v, **video_kw))
+    path_launches["foveated_video"] = launches
+    expect_launches("foveated video", launches, fov_must + ("temporal_pair",), fov_not)
+    q_pc = s_fov["Q_per_ch"]
+    if not np.isfinite(q_fov) or q_pc.shape != (core.plan.height, 2, N_FRAMES) \
+            or not np.all(np.isfinite(q_pc)):
+        raise AssertionError(f"foveated 4K clip: JOD {q_fov}, Q_per_ch {q_pc.shape}")
+    if not q_fov > q_video:
+        raise AssertionError(f"foveated JOD {q_fov} is not above the non-foveated "
+                             f"{q_video}: sensitivity falls with eccentricity")
+    torch.cuda.reset_peak_memory_stats()
+    times, warm_s = warm_seconds(lambda: fv_fov.predict(test_v, ref_v, **video_kw))
+    peak = torch.cuda.max_memory_allocated()
+    B_fov = fv_fov._pick_block_size(H, W, N_FRAMES, "banded")
+    src_s, score_s = split_timings(fv_fov, (test_v, ref_v, FPS), "HWCF", dev)
+    emit(dict(phase="foveated_video", jod=q_fov, warm_s_runs=times, warm_s_median=warm_s,
+              fps=N_FRAMES / warm_s, source_s_median=src_s, score_s_median=score_s,
+              table_bytes=core_fov.fov_table_bytes(), block_frames=B_fov, peak_bytes=peak,
+              peak_bytes_per_px_frame=(peak - core_fov.fov_table_bytes()) / (B_fov * H * W),
+              launches=launches))
+    (q_fimg, s_fimg), launches = counted(lambda: fv_fov.predict(img_t, img_r, dim_order="HWC"))
+    expect_launches("foveated image", launches, fov_must, fov_not + ("temporal_pair",))
+    if not np.isfinite(q_fimg) or not np.all(s_fimg["Q_per_ch"][:, 1] == 0.0):
+        raise AssertionError(f"foveated 4K image: JOD {q_fimg}")
+    times, warm_s = warm_seconds(lambda: fv_fov.predict(img_t, img_r, dim_order="HWC"))
+    emit(dict(phase="foveated_image", jod=q_fimg, warm_ms_median=1e3 * warm_s,
+              launches=launches))
+    fv_fov.load_state(fv_fov.parameters, fv_fov._luts)    # frees the 4K tables
+    del core_fov
+
+    vr_t, vr_r = synth_clip(1600, 1440, 8)
+    vr_kw = dict(dim_order="HWCF", frames_per_second=FPS, fixation_point=np.array([500, 600]))
+    (q_vr, s_vr), launches = counted(lambda: fvt.fvvdp(
+        display_name="htc_vive_pro", foveated=True).predict(vr_t, vr_r, **vr_kw))
+    expect_launches("foveated VR video", launches, fov_must + ("temporal_pair",), fov_not)
+    q_vr_cpu, s_vr_cpu = fvt.fvvdp(display_name="htc_vive_pro", foveated=True,
+                                   device="cpu").predict(vr_t, vr_r, **vr_kw)
+    emit(dict(phase="foveated_vs_cpu", shape=[1600, 1440, 8], jod=q_vr, jod_cpu=q_vr_cpu,
+              max_rel_q_per_ch=float(np.max(np.abs(s_vr["Q_per_ch"] - s_vr_cpu["Q_per_ch"])
+                                            / np.maximum(np.abs(s_vr_cpu["Q_per_ch"]), 1e-6)))))
+    if not abs(q_vr - q_vr_cpu) <= 1e-3:
+        raise AssertionError(f"foveated 1440x1600 video: card {q_vr} vs CPU {q_vr_cpu}")
+    del vr_t, vr_r
+
+    # 7. heatmaps
+    heat_must = ("gausspyr_reduce", "expand_contrast")
+    heat_not = ("expand_score2", "band_score", "band_score2", "band_score2_fov")
+    heat = {}
+    for kind in ("threshold", "raw"):
+        fv_h = fvt.fvvdp(display_name="standard_4k", heatmap=kind)
+        (q_h, s_h), launches = counted(lambda: fv_h.predict(img_t, img_r, dim_order="HWC"))
+        expect_launches(f"heatmap {kind} image", launches, heat_must,
+                        heat_not + ("temporal_pair",))
+        hm = s_h["heatmap"]
+        c = 1 if kind == "raw" else 3
+        if not isinstance(hm, np.ndarray) or hm.shape != (1, c, 1, H, W) \
+                or hm.dtype != np.float16 or not np.all(np.isfinite(hm)):
+            raise AssertionError(f"{kind} heatmap: {type(hm)} {hm.shape} {hm.dtype}")
+        if kind != "raw" and (hm.min() < 0.0 or hm.max() > 1.0):
+            raise AssertionError(f"{kind} heatmap outside [0, 1]: {hm.min()}..{hm.max()}")
+        if not abs(q_h - q_img) <= 1e-3:
+            raise AssertionError(f"JOD with a {kind} heatmap {q_h} vs without {q_img}")
+        torch.cuda.reset_peak_memory_stats()
+        times, warm_s = warm_seconds(lambda: fv_h.predict(img_t, img_r, dim_order="HWC"))
+        peak = torch.cuda.max_memory_allocated()
+        src_s, score_s = split_timings(fv_h, (img_t, img_r, 0), "HWC", dev)
+        heat[kind] = hm
+        emit(dict(phase=f"heatmap_{kind}_image", jod=q_h, warm_ms_median=1e3 * warm_s,
+                  source_ms_median=1e3 * src_s, score_ms_median=1e3 * score_s,
+                  peak_bytes=peak, peak_bytes_per_px_frame=peak / (H * W),
+                  heatmap_max=float(hm.max()), launches=launches))
+    _, s_cpu = fvt.fvvdp(display_name="standard_4k", heatmap="raw", device="cpu").predict(
+        img_t, img_r, dim_order="HWC")
+    raw_err = float(np.max(np.abs(heat["raw"].astype(np.float32)
+                                  - s_cpu["heatmap"].astype(np.float32))))
+    # the parts of the heatmap image's scoring time that have a function of
+    # their own: the colour map with its tone curve, and the copy to the host
+    dmap = torch.as_tensor(heat["raw"][0, :, 0].astype(np.float32), device=dev)[None]
+    ctx = torch.rand((1, 1, H, W), device=dev) * 100.0 + 0.1
+    rgb = visualize_diff_map_frames(dmap, ctx, "threshold").to(torch.float16)
+    # and the same image scored with the map left on the device: what remains
+    # of the host-resident run's scoring time is the copy to the host
+    _, dev_score_s = split_timings(
+        fvt.fvvdp(display_name="standard_4k", heatmap="threshold", device_heatmap=True),
+        (img_t, img_r, 0), "HWC", dev)
+    emit(dict(phase="heatmap_raw_vs_cpu", max_abs_err=raw_err, tolerance="atol 2e-3",
+              visualize_ms=time_ms(lambda: visualize_diff_map_frames(dmap, ctx, "threshold")),
+              to_host_ms=time_ms(lambda: rgb.cpu()),
+              threshold_score_ms_device_heatmap=1e3 * dev_score_s))
+    if not raw_err <= 2e-3:
+        raise AssertionError(f"raw 4K heatmap differs from the CPU's by {raw_err}")
+    del heat, s_cpu, dmap, ctx, rgb
+
+    n_h = HEAT_FRAMES
+    sub_t = np.ascontiguousarray(test_v[..., :n_h])
+    sub_r = np.ascontiguousarray(ref_v[..., :n_h])
+    fv_h = fvt.fvvdp(display_name="standard_4k", heatmap="supra-threshold",
+                     device_heatmap=True, heatmap_dtype="uint8")
+    torch.cuda.reset_peak_memory_stats()
+    (q_hv, s_hv), launches = counted(lambda: fv_h.predict(sub_t, sub_r, **video_kw))
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("heatmap video", launches, heat_must + ("temporal_pair",), heat_not)
+    hm = s_hv["heatmap"]
+    if not isinstance(hm, torch.Tensor) or not hm.is_cuda or hm.dtype != torch.uint8 \
+            or tuple(hm.shape) != (1, 3, n_h, H, W):
+        raise AssertionError(f"device heatmap: {type(hm)} {getattr(hm, 'shape', None)}")
+    q_plain, _ = fv.predict(sub_t, sub_r, **video_kw)
+    if not abs(q_hv - q_plain) <= 1e-3:
+        raise AssertionError(f"JOD with a device heatmap {q_hv} vs without {q_plain}")
+    B_h = fv_h._pick_block_size(H, W, n_h, "composed")
+    del hm, s_hv
+    times, warm_s = warm_seconds(lambda: fv_h.predict(sub_t, sub_r, **video_kw))
+    emit(dict(phase="heatmap_video", frames=n_h, jod=q_hv, jod_without=q_plain,
+              warm_s_median=warm_s, block_frames=B_h, peak_bytes=peak,
+              peak_bytes_per_px_frame=peak / (B_h * H * W), launches=launches))
+
+    # 8. per-channel LUTs (the temporal channels' Y grids differ)
+    pc_must = ("gausspyr_reduce", "expand_contrast", "band_score")
+    pc_not = ("expand_score2", "band_score2", "band_score2_fov")
+    (q_pci, _), launches = counted(lambda: fv_pc.predict(img_t, img_r, dim_order="HWC"))
+    expect_launches("per-channel image", launches, pc_must, pc_not + ("temporal_pair",))
+    torch.cuda.reset_peak_memory_stats()
+    (q_pcv, s_pcv), launches = counted(lambda: fv_pc.predict(sub_t, sub_r, **video_kw))
+    peak = torch.cuda.max_memory_allocated()
+    path_launches["per_channel_video"] = launches
+    expect_launches("per-channel video", launches, pc_must + ("temporal_pair",), pc_not)
+    B_pc = fv_pc._pick_block_size(H, W, n_h, "banded")
+    n_blocks = -(-n_h // B_pc)
+    if launches["band_score"] != 2 * core.plan.height * n_blocks:
+        raise AssertionError(f"band_score launched {launches['band_score']} times, expected "
+                             f"2 x {core.plan.height} levels x {n_blocks} blocks")
+    # the cut knot lies above the display's peak, so the scores are the default's
+    if not abs(q_pcv - q_plain) <= 1e-3 or not abs(q_pci - q_img) <= 1e-3:
+        raise AssertionError(f"per-channel LUTs: video {q_pcv} vs {q_plain}, "
+                             f"image {q_pci} vs {q_img}")
+    times, warm_s = warm_seconds(lambda: fv_pc.predict(sub_t, sub_r, **video_kw))
+    hd_t, hd_r = synth_clip(1080, 1920, 8)
+    fv_hd = fvt.fvvdp(display_name="standard_fhd")
+    fv_hd.load_state(fv_hd.parameters, cut_luts(fv_hd))
+    q_hd, _ = fv_hd.predict(hd_t, hd_r, **video_kw)
+    fv_hd_cpu = fvt.fvvdp(display_name="standard_fhd", device="cpu")
+    fv_hd_cpu.load_state(fv_hd_cpu.parameters, cut_luts(fv_hd_cpu))
+    q_hd_cpu, _ = fv_hd_cpu.predict(hd_t, hd_r, **video_kw)
+    emit(dict(phase="per_channel_luts", frames=n_h, jod_image=q_pci, jod_video=q_pcv,
+              warm_s_median=warm_s, block_frames=B_pc, peak_bytes=peak,
+              peak_bytes_per_px_frame=peak / (B_pc * H * W), launches=launches,
+              jod_1080p=q_hd, jod_1080p_cpu=q_hd_cpu))
+    if not abs(q_hd - q_hd_cpu) <= 1e-3:
+        raise AssertionError(f"per-channel LUTs at 1080p: card {q_hd} vs CPU {q_hd_cpu}")
+
+    # 9. kernels line, result line
     print(smi, flush=True)
-    emit(dict(kernels=kernel_summary(cases["rows"], launches)))
+    emit(dict(kernels=kernel_summary(cases["rows"], path_launches)))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))
     return 0

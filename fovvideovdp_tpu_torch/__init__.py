@@ -1,9 +1,10 @@
 """FovVideoVDP on PyTorch and CUDA (NVIDIA Hopper).
 
 A port of ``fovvideovdp_tpu`` (JAX/Pallas on TPU), which stays the
-reference.  This package imports torch and numpy only.  It scores the
-metric's default configuration on a CUDA card through hand-written kernels
-(``ops/cuda``, sources in ``csrc/``); ``device="cpu"`` runs their plain
+reference.  This package imports torch and numpy only.  It scores images
+and videos on a CUDA card through hand-written kernels (``ops/cuda``,
+sources in ``csrc/``): the default configuration, fixed-gaze foveation,
+heatmaps and per-channel CSF LUTs.  ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead.
 """
 from fovvideovdp_tpu_torch.display_model import (
@@ -18,6 +19,7 @@ from fovvideovdp_tpu_torch.video_source import (
     fvvdp_video_source,
     fvvdp_video_source_array,
 )
+from fovvideovdp_tpu_torch.visualize import vis_tonemap, visualize_diff_map
 
 __version__ = "0.1.0"
 
@@ -30,4 +32,6 @@ __all__ = [
     "fvvdp_display_geometry",
     "fvvdp_video_source",
     "fvvdp_video_source_array",
+    "visualize_diff_map",
+    "vis_tonemap",
 ]

@@ -1,111 +1,363 @@
-"""Metric core: scoring of frame blocks on the default path.
+"""Metric core: scoring of frame blocks.
 
-Counterpart of ``fovvideovdp_tpu/core.py:47-147,287-313,398-449,848-901``
-for the default configuration (non-foveated, no heatmap, ``local_adapt``
-"gpyr", Weber contrast, 'min_mutual_masking_perc_norm2' masking, LUTs on
-one uniform Y grid).  Per block: temporal channels (CUDA kernel), Gaussian
-pyramid (reduce kernel) and one fused expand+score kernel per level.
+Counterpart of ``fovvideovdp_tpu/core.py:47-194,287-332,382-449,451-668,
+673-721,848-901`` for ``local_adapt`` "gpyr", Weber contrast and
+'min_mutual_masking_perc_norm2' masking, on LUTs with a uniform Y grid.
+Per block: temporal channels (CUDA kernel), Gaussian pyramid (reduce
+kernel), then one of four routes per level:
 
-Layout: (F, C, H, W) with C = [T-sust, R-sust, T-trans, R-trans].
+* default (no foveation, no heatmap, both LUTs on one Y grid): the fused
+  expand + score kernel; contrast never reaches memory;
+* fixed-gaze foveation: expand_contrast kernel, then band_score2_fov with
+  the per-pixel CSF tables of the fixation point;
+* per-channel LUTs (Y grids differ): expand_contrast, then band_score once
+  per temporal channel;
+* heatmaps (and foveation on per-channel LUTs): expand_contrast, then the
+  per-pixel composition in tensor operations, which keeps the difference
+  map D of every level for the reconstruction.
+
+Layout: (F, C, H, W) with C = [T-sust, R-sust, T-trans, R-trans]; an image
+has C = 2.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch import csf as csf_mod
+from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
+from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
+from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 
 
 class MetricCore:
-    """Static per-resolution state (pyramid plan, per-band CSF tables) and
-    the block scorers."""
+    """Static per-resolution state (pyramid plan, per-band CSF tables,
+    foveation maps) and the block scorers.  ``heatmap`` and
+    ``heatmap_dtype`` come checked from ``fvvdp``."""
+
+    # Fixed-gaze table sets kept per core: as many as fit a quarter of the
+    # card's memory, between 1 and 8 (one 4K set is 1.68 GB, so an 80 GB
+    # card keeps 8; block sizing reads the free memory after they are
+    # built).  On the CPU, 2.
+    _FOV_CACHE_SHARE = 0.25
+    _FOV_CACHE_MAX = 8
+    _FOV_CACHE_CPU = 2
 
     def __init__(self, plan: PyramidPlan, params: Dict, luts: Sequence[Dict],
-                 device, peak_luminance=None):
+                 device, peak_luminance=None, geometry=None, foveated: bool = False,
+                 heatmap: Optional[str] = None, heatmap_dtype: str = "float16"):
         self.plan = plan
         self.params = params
         self.luts = tuple(luts)
         self.device = torch.device(device)
         self.peak_luminance = peak_luminance
-        if len(self.luts) < 2 or not all(
-                np.array_equal(csf_mod._np(self.luts[0][k]), csf_mod._np(self.luts[1][k]))
-                for k in ("Y_log", "Y")):
-            raise NotImplementedError(
-                "the fused scorer needs both temporal-channel LUTs on one Y "
-                "grid; per-channel LUTs (band_score kernels 7-8) are ROADMAP "
-                "queue 2")
+        self.geometry = geometry
+        self.foveated = bool(foveated)
+        self.heatmap = heatmap
+        self.do_heatmap = heatmap is not None and heatmap != "none"
+        self.heatmap_dtype = heatmap_dtype
+        if len(self.luts) < 2:
+            raise ValueError("the metric needs one LUT per temporal channel (2)")
         if not all(csf_mod._axis_uniform(l, "Y_log") for l in self.luts):
             raise NotImplementedError(
                 "LUTs with a non-uniform Y grid take the unfused scorer, "
                 "ROADMAP queue 1 item 10")
+        self._luts_share_Y = all(
+            np.array_equal(csf_mod._np(self.luts[0][k]), csf_mod._np(self.luts[1][k]))
+            for k in ("Y_log", "Y"))
 
-        # per band: the LUT collapsed to 1-D tables in luminance, trimmed to
-        # the knots reachable for L_bkg in [0.1, peak]
-        rho_band = plan.get_freqs()
-        self._band_tables = []
-        self._score_tables = []
-        lut2 = self.luts[0]
-        for bb in range(plan.height):
-            tabs = tuple(csf_mod.reduce_lut_to_1d(self.luts[cc], float(rho_band[bb]), 0.0)
-                         for cc in range(2))
-            self._band_tables.append(tabs)
-            t2, lut2 = csf_mod.trim_lut_range(np.stack(tabs), self.luts[0],
-                                              lbkg_max=peak_luminance)
-            self._score_tables.append(torch.as_tensor(
-                np.ascontiguousarray(t2, dtype=np.float32), device=self.device))
-        self._score_lut = lut2
+        # which scorer score_frames takes (see the module's docstring)
+        if self.do_heatmap or (self.foveated and not self._luts_share_Y):
+            self.route = "composed"
+        elif self.foveated or not self._luts_share_Y:
+            self.route = "banded"
+        else:
+            self.route = "fused"
+
         p = params
-        self._meta = [
-            bp.score_meta(self._score_lut, p["mask_p"], p["mask_q_sust"],
-                          p["mask_q_trans"], p["mask_c"],
-                          10.0 ** (p["sensitivity_correction"] / 20.0)
-                          * plan.band_gain(bb, plan.get_band_count()),
-                          p["beta"])
-            for bb in range(plan.height)]
+        sens_corr = 10.0 ** (p["sensitivity_correction"] / 20.0)
+        n_bands = plan.get_band_count()
+        rho_band = plan.get_freqs()
 
-    def score_frames(self, R: torch.Tensor, temp_ch: int) -> torch.Tensor:
+        def meta_for(lut, bb):
+            # the per-band gain folds into the sensitivity correction:
+            # everything between the contrast and |T - R|, min(|T|, |R|) is
+            # linear in it
+            return bs.score_meta(lut, p["mask_p"], p["mask_q_sust"], p["mask_q_trans"],
+                                 p["mask_c"], sens_corr * plan.band_gain(bb, n_bands),
+                                 p["beta"])
+
+        # Not foveated: per (band, channel) the LUT collapses to a 1-D table
+        # in luminance.  Foveated: static per-band maps of spatial frequency
+        # (rho x resolution magnification) and view direction; eccentricity
+        # depends on the gaze and is computed per fixation point.
+        self._band_tables: List = []
+        self._band_rho: List = []
+        self._band_view_dir: List = []
+        for bb in range(plan.height):
+            h, w = plan.level_shapes[bb]
+            if not self.foveated:
+                self._band_tables.append(tuple(
+                    csf_mod.reduce_lut_to_1d(self.luts[cc], float(rho_band[bb]), 0.0)
+                    for cc in range(2)))
+                continue
+            xv = torch.linspace(0.5, w - 0.5, w, dtype=torch.float32, device=self.device)
+            yv = torch.linspace(0.5, h - 0.5, h, dtype=torch.float32, device=self.device)
+            yy, xx = torch.meshgrid(yv, xv, indexing="ij")
+            view_dir = geometry.pix2view_direction((w, h), xx, yy)
+            res_mag = geometry.get_resolution_magnification(view_dir)
+            self._band_rho.append((float(rho_band[bb]) * res_mag).to(torch.float32))
+            self._band_view_dir.append(view_dir.to(torch.float32))
+
+        # Default route: both channels' tables on the shared grid, trimmed to
+        # the knots reachable for L_bkg in [0.1, peak].
+        self._score_tables: List = []
+        self._score_lut = None
+        self._meta: List = []
+        # Per-channel LUTs: each channel's own table and Y grid.
+        self._channel_tables: List = []
+        self._channel_meta: List = []
+        if not self.foveated and self._luts_share_Y:
+            lut2 = self.luts[0]
+            for bb in range(plan.height):
+                t2, lut2 = csf_mod.trim_lut_range(np.stack(self._band_tables[bb]),
+                                                  self.luts[0], lbkg_max=peak_luminance)
+                self._score_tables.append(self._to_device(t2))
+            self._score_lut = lut2
+            self._meta = [meta_for(lut2, bb) for bb in range(plan.height)]
+        elif not self.foveated:
+            for bb in range(plan.height):
+                self._channel_tables.append(tuple(
+                    self._to_device(t) for t in self._band_tables[bb]))
+                self._channel_meta.append(tuple(
+                    meta_for(self.luts[cc], bb) for cc in range(2)))
+
+        # Fixed gaze: the per-pixel tables get the same Y-knot trim (32 -> 19
+        # planes on a 200 cd/m^2 display), which cuts both the kernel's table
+        # reads and the memory the cached sets hold.
+        self._fov_trim = None
+        self._fov_lut = None
+        self._fov_meta: List = []
+        self._fov_table_cache: Dict = {}   # insertion-ordered: least recent first
+        if self.foveated and self._luts_share_Y:
+            lo, hi, lut2 = csf_mod.trim_lut_bounds(self.luts[0], lbkg_max=peak_luminance)
+            if lut2 is not self.luts[0]:
+                self._fov_trim = (lo, hi)
+                self._fov_lut = lut2
+            self._fov_meta = [meta_for(self._fov_lut or self.luts[0], bb)
+                              for bb in range(plan.height)]
+
+    def _to_device(self, table) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(table, dtype=np.float32),
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    # fixed-gaze per-pixel CSF tables
+    # ------------------------------------------------------------------
+    def fov_table_bytes(self) -> int:
+        """Device bytes of one fixed-gaze table set (``fov_tables``): kept
+        knots x h x w float32 planes per band per temporal channel."""
+        if not self.foveated:
+            return 0
+        if self._fov_trim is not None:
+            n = self._fov_trim[1] - self._fov_trim[0] + 1
+        else:
+            n = int(self.luts[0]["Y_log"].shape[0])
+        return n * 2 * sum(int(r.numel()) for r in self._band_rho) * 4
+
+    def _fov_cache_entries(self) -> int:
+        if self.device.type != "cuda":
+            return self._FOV_CACHE_CPU
+        total = torch.cuda.get_device_properties(self.device).total_memory
+        fit = int(self._FOV_CACHE_SHARE * total // max(self.fov_table_bytes(), 1))
+        return max(1, min(self._FOV_CACHE_MAX, fit))
+
+    def fov_tables(self, gaze_xy):
+        """Per band, per channel (n, h, w) S_log(Y_log) tables for a fixed
+        fixation point (x, y) in pixels: the LUT's (rho, ecc) axes are
+        collapsed once here, so the per-frame foveated CSF costs the same
+        as the non-foveated 1-D one.  Cached for the most recent fixation
+        points only (see ``_FOV_CACHE_SHARE``)."""
+        key = (float(gaze_xy[0]), float(gaze_xy[1]))
+        cache = self._fov_table_cache
+        if key in cache:                          # refresh its place
+            cache[key] = cache.pop(key)
+            return cache[key]
+        while len(cache) >= self._fov_cache_entries():
+            cache.pop(next(iter(cache)))
+        gaze = torch.tensor([[key[0] + 0.5], [key[1] + 0.5]], dtype=torch.float32,
+                            device=self.device)
+        gaze_dir = self.geometry.pix2view_direction(
+            (self.plan.W, self.plan.H), gaze[0], gaze[1]).reshape(2, 1, 1)
+        tabs = []
+        for bb in range(self.plan.height):
+            vd = self._band_view_dir[bb]          # (2, h, w)
+            ecc = torch.sqrt(torch.sum((vd - gaze_dir) ** 2, dim=0))
+            per_cc = []
+            for cc in range(2):
+                t = csf_mod.reduce_lut_to_pixel_tables(self.luts[cc], self._band_rho[bb], ecc)
+                if self._fov_trim is not None:
+                    lo, hi = self._fov_trim
+                    t = t[lo:hi + 1].contiguous()
+                per_cc.append(t)
+            tabs.append(tuple(per_cc))
+        cache[key] = tabs
+        return tabs
+
+    def drop_fov_tables(self) -> None:
+        """Free every cached fixed-gaze table set."""
+        self._fov_table_cache.clear()
+
+    # ------------------------------------------------------------------
+    # scoring of a block of temporal-response frames
+    # ------------------------------------------------------------------
+    def score_frames(self, R: torch.Tensor, temp_ch: int, fov_tables=None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Score a block of temporal responses R (F, 2*temp_ch, H, W).
-        Returns Q_per_ch (n_bands, 2, F)."""
+        ``fov_tables``: the fixation point's tables from :meth:`fov_tables`
+        (required when foveated).  Returns (Q_per_ch (n_bands, 2, F),
+        heatmap (F, c, H, W) or None)."""
+        if self.foveated and fov_tables is None:
+            raise ValueError("a foveated core scores with the fixation point's "
+                             "fov_tables")
+        R = R.contiguous()
+        if self.route == "composed":
+            return self._score_frames_composed(R, temp_ch, fov_tables)
+        if self.route == "banded":
+            return self._score_frames_banded(R, temp_ch, fov_tables), None
         if temp_ch == 1:
             # image path: zero transient channels score exactly 0 through
             # the pipeline (D(0,0) = 0)
             R = torch.cat([R, torch.zeros_like(R)], dim=1)
-        return self._score_frames_fused(R.contiguous())
+        return self._score_frames_fused(R), None
+
+    def _q_from_sums(self, ssum: torch.Tensor, bb: int) -> torch.Tensor:
+        """(F, k) sums of D^beta over the band's pixels -> (k, F) norms."""
+        beta = self.params["beta"]
+        h, w = self.plan.level_shapes[bb]
+        return torch.pow(ssum, 1.0 / beta).T / (float(h * w) ** (1.0 / beta))
 
     def _score_frames_fused(self, R: torch.Tensor) -> torch.Tensor:
-        beta = self.params["beta"]
         plan = self.plan
         gpyr = plan.gaussian_pyramid(R)
         Q_rows = []
         for bb in range(plan.height):
-            h, w = plan.level_shapes[bb]
-            inv_norm = float(h * w) ** (1.0 / beta)
             ssum2 = bp.expand_score2(gpyr[bb], gpyr[bb + 1], self._score_tables[bb],
                                      self._meta[bb])               # (F, 2)
-            Q_rows.append(torch.pow(ssum2, 1.0 / beta).T / inv_norm)
+            Q_rows.append(self._q_from_sums(ssum2, bb))
         return torch.stack(Q_rows, dim=0)                         # (n_bands, 2, F)
 
-    def score_image(self, T: torch.Tensor, Rf: torch.Tensor) -> torch.Tensor:
-        """(H, W) luminance pair -> Q_per_ch (n_bands, 2, 1)."""
-        return self.score_frames(torch.stack([T, Rf], dim=0)[None], temp_ch=1)
+    def _score_frames_banded(self, R: torch.Tensor, temp_ch: int, fov_tables
+                             ) -> torch.Tensor:
+        """Materialised contrast, one level at a time, scored by the band
+        kernels: per-pixel tables (fixed gaze) or one launch per channel
+        (per-channel LUTs)."""
+        Q_rows = []
+        for bb, (band, L_bkg) in enumerate(self.plan.contrast_levels(R)):
+            L = L_bkg[:, 0]
+            if self.foveated:
+                if temp_ch == 1:
+                    # image path: zero transient contrast scores exactly 0
+                    band = torch.cat([band, torch.zeros_like(band)], dim=1)
+                ssum = bs.band_score2_fov(band, L, fov_tables[bb][0], fov_tables[bb][1],
+                                          self._fov_meta[bb])     # (F, 2)
+                Q_rows.append(self._q_from_sums(ssum, bb))
+                continue
+            Q_cc = []
+            for cc in range(temp_ch):
+                meta = self._channel_meta[bb][cc]
+                ssum = bs.band_score(band[:, 2 * cc], band[:, 2 * cc + 1], L,
+                                     self._channel_tables[bb][cc], meta,
+                                     (meta.q_s, meta.q_t)[cc])    # (F,)
+                Q_cc.append(self._q_from_sums(ssum[:, None], bb)[0])
+            while len(Q_cc) < 2:
+                Q_cc.append(torch.zeros_like(Q_cc[0]))
+            Q_rows.append(torch.stack(Q_cc, dim=0))
+        return torch.stack(Q_rows, dim=0)
 
-    def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _sensitivity(self, bb: int, cc: int, L: torch.Tensor, fov_tables) -> torch.Tensor:
+        if self.foveated:
+            lut = self._fov_lut if self._fov_trim is not None else self.luts[cc]
+            return csf_mod.sensitivity_pixel_tables(lut, fov_tables[bb][cc], L)
+        return csf_mod.sensitivity_1d(self.luts[cc], self._band_tables[bb][cc], L)
+
+    def _score_frames_composed(self, R: torch.Tensor, temp_ch: int, fov_tables
+                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Materialised contrast scored in tensor operations, keeping the
+        per-pixel difference D of every level for the heatmap."""
+        p = self.params
+        plan = self.plan
+        F = R.shape[0]
+        sens_corr = 10.0 ** (p["sensitivity_correction"] / 20.0)
+        w_temp_ch = (1.0, p["w_transient"])
+        n_bands = plan.get_band_count()
+        Q_rows = []
+        heat_bands: List[torch.Tensor] = []
+        for bb, (band, L_bkg) in enumerate(plan.contrast_levels(R)):
+            gain = plan.band_gain(bb, n_bands)
+            band = band * gain
+            L = L_bkg[:, 0]
+            Q_cc = []
+            D_acc = None
+            for cc in range(temp_ch):
+                S = self._sensitivity(bb, cc, L, fov_tables) * sens_corr
+                q = (p["mask_q_sust"], p["mask_q_trans"])[cc]
+                D = mask_ops.apply_masking_model(band[:, 2 * cc], band[:, 2 * cc + 1],
+                                                 1.0 / S, p["mask_p"], q, p["mask_c"])
+                ssum = torch.sum(torch.pow(torch.abs(D), p["beta"]), dim=(-2, -1))
+                Q_cc.append(self._q_from_sums(ssum[:, None], bb)[0])
+                if self.do_heatmap:
+                    D_acc = D if cc == 0 else D_acc + w_temp_ch[cc] * D
+            while len(Q_cc) < 2:
+                Q_cc.append(torch.zeros((F,), dtype=R.dtype, device=R.device))
+            Q_rows.append(torch.stack(Q_cc, dim=0))
+            if self.do_heatmap:
+                heat_bands.append((D_acc / gain)[:, None])        # (F, 1, h, w)
+        Q_per_ch = torch.stack(Q_rows, dim=0)
+        if not self.do_heatmap:
+            return Q_per_ch, None
+
+        base = torch.zeros((F, 1) + plan.level_shapes[plan.height], dtype=R.dtype,
+                           device=R.device)
+        dmap = plan.reconstruct(heat_bands + [base])
+        beta_jod = 10.0 ** p["log_jod_exp"]
+        dmap = torch.pow(torch.clamp(dmap, min=0.0), beta_jod) * abs(p["jod_a"])
+        if self.heatmap == "raw":
+            heat = dmap
+        else:
+            # the context is the test-sustained channel
+            heat = visualize_diff_map_frames(dmap, R[:, 0:1], self.heatmap)
+        if self.heatmap_dtype == "uint8":
+            # display-referred RGB in [0, 1], quantised on the device
+            # (torch.round rounds half to even, as jnp.round does)
+            heat = torch.round(torch.clamp(heat, 0.0, 1.0) * 255.0).to(torch.uint8)
+        else:
+            heat = heat.to(torch.float16)
+        return Q_per_ch, heat
+
+    def score_image(self, T: torch.Tensor, Rf: torch.Tensor, fov_tables=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(H, W) luminance pair -> (Q_per_ch (n_bands, 2, 1), heatmap)."""
+        return self.score_frames(torch.stack([T, Rf], dim=0)[None], temp_ch=1,
+                                 fov_tables=fov_tables)
+
+    def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor,
+                   fov_tables=None):
         """One streaming step: temporal channels over the fl-1 carried frames
         plus the new block (B, H, W), then scoring.  Returns (Q_per_ch
-        (n_bands, 2, B), next carry_t, next carry_r)."""
+        (n_bands, 2, B), heatmap or None, next carry_t, next carry_r)."""
         fl = taps.shape[1]
         B = new_t.shape[0]
         R = temporal_ops.temporal_channels_pair(carry_t, new_t, carry_r, new_r, taps)
-        Q = self.score_frames(R, temp_ch=2)
+        Q, heat = self.score_frames(R, temp_ch=2, fov_tables=fov_tables)
         if fl - 1 <= B:
             c_t, c_r = new_t[B - (fl - 1):], new_r[B - (fl - 1):]
         else:
             c_t = torch.cat([carry_t, new_t], dim=0)[-(fl - 1):]
             c_r = torch.cat([carry_r, new_r], dim=0)[-(fl - 1):]
-        return Q, c_t.contiguous(), c_r.contiguous()
+        return Q, heat, c_t.contiguous(), c_r.contiguous()

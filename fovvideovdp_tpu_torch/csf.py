@@ -1,14 +1,16 @@
-"""Contrast sensitivity LUTs: loading and the host-side reductions of the
-non-foveated path.
+"""Contrast sensitivity LUTs: loading, the host-side reductions of the
+non-foveated path and the per-pixel reductions of the fixed-gaze path.
 
-Counterpart of ``fovvideovdp_tpu/csf.py:35-146,184-235``.  A LUT is a dict
+Counterpart of ``fovvideovdp_tpu/csf.py:35-235,292-386``.  A LUT is a dict
 of float32 tensors (``LUT_FIELDS``) plus ``"_uniform"``, the per-axis flags
-saying whether the grid is uniform in its transformed space.  Everything
-that reduces a LUT runs once per metric core, on the host, in numpy, with
-the same arithmetic as the JAX package, so both build identical tables.
+saying whether the grid is uniform in its transformed space.  The 1-D
+reductions run once per metric core, on the host, in numpy, with the same
+arithmetic as the JAX package, so both build identical tables.  The
+per-pixel functions take and return tensors on the LUT's device.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict, Optional
 
@@ -143,3 +145,151 @@ def trim_lut_range(tables, lut: Dict, lbkg_min: float = 0.1,
     if lut2 is lut:
         return tables, lut
     return np.asarray(tables)[..., lo:hi + 1], lut2
+
+
+# ---------------------------------------------------------------------------
+# Per-pixel (tensor) interpolation: fixed-gaze foveation and heatmaps
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _full_fp32_matmul():
+    """Matrix products in full float32 (TF32 keeps about three digits)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def _two_point_rows(i_lo, i_hi, f, n: int) -> torch.Tensor:
+    """Dense (..., n) rows holding 1 - f at i_lo and f at i_hi."""
+    w = torch.zeros(i_lo.shape + (n,), dtype=f.dtype, device=f.device)
+    w.scatter_(-1, i_lo.unsqueeze(-1), (1.0 - f).unsqueeze(-1))
+    w.scatter_add_(-1, i_hi.unsqueeze(-1), f.unsqueeze(-1))
+    return w
+
+
+def _uniform_weights(q: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """2-point interpolation weights on a uniform grid as a dense row (n,)
+    per query."""
+    n = grid.shape[0]
+    u = grid_index_coord(q, grid, True)
+    i0 = torch.floor(u).to(torch.int64)
+    return _two_point_rows(i0, torch.clamp(i0 + 1, max=n - 1), u - i0.to(u.dtype), n)
+
+
+def _monotone_cell(q: torch.Tensor, grid: torch.Tensor):
+    """Cell search of the reference interpolants on a monotone grid
+    (searchsorted semantics, clamped ends, negative fractions zeroed)."""
+    n = grid.shape[0]
+    i_hi = torch.clamp(torch.sum(grid < q.unsqueeze(-1), dim=-1), max=n - 1)
+    i_lo = torch.clamp(i_hi - 1, 0, n - 1)
+    x_lo, x_hi = grid[i_lo], grid[i_hi]
+    f = (q - x_lo) / (x_hi - x_lo + 1e-6)
+    f = torch.where((i_hi == i_lo) | (f < 0.0), torch.zeros_like(f), f)
+    return i_lo, i_hi, f
+
+
+def _monotone_weights(q: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """2-point interpolation weights on an arbitrary monotone grid."""
+    i_lo, i_hi, f = _monotone_cell(q, grid)
+    return _two_point_rows(i_lo, i_hi, f, grid.shape[0])
+
+
+def _grid_weights(q, grid, uniform: bool) -> torch.Tensor:
+    return _uniform_weights(q, grid) if uniform else _monotone_weights(q, grid)
+
+
+def grid_index_coord(q: torch.Tensor, grid: torch.Tensor, uniform: bool) -> torch.Tensor:
+    """Query positions as fractional index coordinates of ``grid``:
+    i_lo + f.  Uniform grids reduce to index arithmetic; monotone grids use
+    the reference cell search."""
+    n = grid.shape[0]
+    if uniform:
+        dx = (grid[-1] - grid[0]) / (n - 1)
+        return torch.clamp((q - grid[0]) / dx, 0.0, float(n - 1))
+    i_lo, _, f = _monotone_cell(q, grid)
+    return i_lo.to(q.dtype) + f
+
+
+def _pixel_chunk(n: int, device: torch.device) -> int:
+    """Pixels per chunk of :func:`reduce_lut_to_pixel_tables`.  The
+    (chunk, n, n) float32 intermediate takes 4 n^2 bytes per pixel (4 KB at
+    n = 32); on a card it may take an eighth of the free memory, on the
+    CPU 64 MB."""
+    per_px = 4 * n * n + 16 * n
+    if device.type == "cuda":
+        budget = torch.cuda.mem_get_info(device)[0] // 8
+    else:
+        budget = 64 << 20
+    return int(max(1024, min(budget // per_px, 1 << 22)))
+
+
+def reduce_lut_to_pixel_tables(lut: Dict, rho, ecc: torch.Tensor) -> torch.Tensor:
+    """Collapse the 3-D LUT over its (rho, ecc) axes with per-pixel static
+    maps -> (n, h, w) plane-major S_log(Y_log) tables.
+
+    The fixed-gaze fast path: when the fixation point does not move, rho
+    (spatial frequency x resolution magnification) and ecc (eccentricity)
+    are static per band, so the two-axis interpolation runs once per
+    fixation point here, and the per-frame work is the same 1-D luminance
+    interpolation as on the non-foveated path.  Equal to the trilinear
+    interpolation by associativity."""
+    V = lut["S_log"]                       # [Y, rho, ecc]
+    dev = V.device
+    shape = tuple(ecc.shape)
+    ecc = torch.as_tensor(ecc, dtype=torch.float32, device=dev).reshape(-1)
+    rho = torch.broadcast_to(torch.as_tensor(rho, dtype=torch.float32, device=dev),
+                             shape).reshape(-1)
+    rho_q = torch.log2(torch.clamp(rho, lut["rho"][0], lut["rho"][-1]))
+    ecc_q = torch.sqrt(torch.clamp(ecc, lut["ecc"][0], lut["ecc"][-1]))
+
+    n = V.shape[0]
+    N = rho_q.shape[0]
+    chunk = _pixel_chunk(n, dev)
+    u_r = _axis_uniform(lut, "rho_log")
+    u_e = _axis_uniform(lut, "ecc_sqrt")
+    out = torch.empty((N, n), dtype=torch.float32, device=dev)
+    with _full_fp32_matmul():
+        for a in range(0, N, chunk):
+            w_r = _grid_weights(rho_q[a:a + chunk], lut["rho_log"], u_r)    # (c, n)
+            w_e = _grid_weights(ecc_q[a:a + chunk], lut["ecc_sqrt"], u_e)   # (c, n)
+            B = torch.einsum("yjk,pk->pyj", V, w_e)                         # (c, n, n)
+            out[a:a + chunk] = torch.einsum("pyj,pj->py", B, w_r)
+    return out.reshape(shape + (n,)).movedim(-1, 0).contiguous()
+
+
+def _luminance_coord(lut: Dict, L_bkg: torch.Tensor) -> torch.Tensor:
+    Yq = torch.log2(torch.clamp(L_bkg, lut["Y"][0], lut["Y"][-1]))
+    return grid_index_coord(Yq, lut["Y_log"], _axis_uniform(lut, "Y_log"))
+
+
+def sensitivity_pixel_tables(lut: Dict, tables: torch.Tensor,
+                             L_bkg: torch.Tensor) -> torch.Tensor:
+    """Per-pixel S from plane-major per-pixel S_log(Y_log) tables
+    (n, h, w); L_bkg (F, h, w) or (h, w).  The two neighbouring knots are
+    gathered per pixel; the JAX package's telescoped sum over all knots
+    gives the same piecewise-linear value up to rounding."""
+    n = tables.shape[0]
+    u = _luminance_coord(lut, L_bkg)
+    lead = u.dim() == 3
+    if not lead:
+        u = u[None]
+    i0 = torch.clamp(torch.floor(u).to(torch.int64), max=n - 1)
+    f = u - i0.to(u.dtype)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    s_log = torch.gather(tables, 0, i0) * (1.0 - f) + torch.gather(tables, 0, i1) * f
+    S = torch.exp2(s_log)
+    return S if lead else S[0]
+
+
+def sensitivity_1d(lut: Dict, table_1d, L_bkg: torch.Tensor) -> torch.Tensor:
+    """Per-pixel S from a pre-reduced 1-D S_log(Y_log) table."""
+    table = torch.as_tensor(table_1d, dtype=torch.float32, device=L_bkg.device)
+    n = table.shape[0]
+    u = _luminance_coord(lut, L_bkg)
+    i0 = torch.clamp(torch.floor(u).to(torch.int64), max=n - 1)
+    f = u - i0.to(u.dtype)
+    i1 = torch.clamp(i0 + 1, max=n - 1)
+    return torch.exp2(table[i0] * (1.0 - f) + table[i1] * f)

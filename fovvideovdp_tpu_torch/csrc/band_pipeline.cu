@@ -15,12 +15,8 @@
 // Contrast and L_bkg never leave the block.  The per-band gain is folded
 // into corr by the caller.
 //
-// The expansion follows fovvideovdp_tpu/ops/pyramid.py:gausspyr_expand:
-// the zero-interleaved buffer holds x[i] at 2i+2, x[0] at 0 and x[m-1] at
-// 2m+2, so along each axis it is a polyphase filter over x extended by one
-// replicated sample at each end: even outputs take taps 0, 2, 4, odd ones
-// taps 1, 3 (each times 2), summed in that order without FMA contraction,
-// vertical pass first, as the plain version does.
+// The expansion (a polyphase filter over a clamped coarse window in shared
+// memory) is csrc/expand.cuh, shared with expand_contrast.cu.
 //
 // Bound on this card: about 11 log2/exp2 per fine pixel (the SFU rate)
 // against 20 bytes of fine input per pixel; whichever is larger.  Design:
@@ -34,35 +30,23 @@
 // frame in a fixed order.  No atomics: results are deterministic.
 #include <cuda_runtime.h>
 
+#include "expand.cuh"
+#include "partials.cuh"
 #include "score_math.cuh"
 
 namespace {
 
-constexpr int kTileW = 64;                 // fine columns per block
-constexpr int kTileH = 16;                 // fine rows per block
-constexpr int kCoarseW = kTileW / 2 + 2;   // replicate-extended coarse window
-constexpr int kCoarseH = kTileH / 2 + 2;
-constexpr int kThreads = 256;
-constexpr int kRowsPerPass = kThreads / kTileW;
+using fvvdp::kCoarseH;
+using fvvdp::kCoarseW;
+using fvvdp::kRowsPerPass;
+using fvvdp::kTileH;
+using fvvdp::kTileW;
+constexpr int kThreads = fvvdp::kTileThreads;
 constexpr int kMaxGrid = 64;
 
 struct ScoreParams {
     float y0, dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta;
 };
-
-// 2 * K5[k] * x, rounded as the plain version's (gain * K5[k]) * z
-__device__ __forceinline__ float tap2(int k, float x) {
-    return __fmul_rn(2.0f * fvvdp::k5(k), x);
-}
-
-// one output of the polyphase expansion; v points at the window sample
-// that holds x[out/2 - 1] (even out) or x[(out+1)/2 - 1] (odd out)
-__device__ __forceinline__ float expand_even(const float* v, int stride) {
-    return __fadd_rn(__fadd_rn(tap2(0, v[0]), tap2(2, v[stride])), tap2(4, v[2 * stride]));
-}
-__device__ __forceinline__ float expand_odd(const float* v, int stride) {
-    return __fadd_rn(tap2(1, v[0]), tap2(3, v[stride]));
-}
 
 __global__ void __launch_bounds__(kThreads)
 expand_score_kernel(const float* __restrict__ fine, const float* __restrict__ coarse,
@@ -81,28 +65,8 @@ expand_score_kernel(const float* __restrict__ fine, const float* __restrict__ co
 
     for (int i = tid; i < 2 * n_grid; i += kThreads) s_tab[i / n_grid][i % n_grid] = tables[i];
 
-    // coarse window: extended index i in [-1, m] maps to x[clamp(i, 0, m-1)]
-    const int cr0 = r0 / 2 - 1, cc0 = c0 / 2 - 1;
-    const float* cbase = coarse + (size_t)f * 4 * h2 * w2;
-    for (int i = tid; i < 4 * kCoarseH * kCoarseW; i += kThreads) {
-        const int ch = i / (kCoarseH * kCoarseW);
-        const int rem = i % (kCoarseH * kCoarseW);
-        const int rr = rem / kCoarseW, cc = rem % kCoarseW;
-        const int gy = min(max(cr0 + rr, 0), h2 - 1);
-        const int gx = min(max(cc0 + cc, 0), w2 - 1);
-        s_c[ch][rr][cc] = cbase[((size_t)ch * h2 + gy) * w2 + gx];
-    }
-    __syncthreads();
-
-    // vertical expansion of the window's columns for the tile's 16 rows
-    for (int i = tid; i < 4 * kTileH * kCoarseW; i += kThreads) {
-        const int ch = i / (kTileH * kCoarseW);
-        const int rem = i % (kTileH * kCoarseW);
-        const int lr = rem / kCoarseW, cc = rem % kCoarseW;
-        s_v[ch][lr][cc] = (lr & 1) ? expand_odd(&s_c[ch][(lr + 1) >> 1][cc], kCoarseW)
-                                   : expand_even(&s_c[ch][lr >> 1][cc], kCoarseW);
-    }
-    __syncthreads();
+    fvvdp::expand_tile_vertical<4>(coarse + (size_t)f * 4 * h2 * w2, h2, w2, r0, c0, tid,
+                                   s_c, s_v);
 
     const int lc = tid % kTileW;
     const int gx = c0 + lc;
@@ -115,8 +79,7 @@ expand_score_kernel(const float* __restrict__ fine, const float* __restrict__ co
         float e[4];
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch)
-            e[ch] = (lc & 1) ? expand_odd(&s_v[ch][lr][(lc + 1) >> 1], 1)
-                             : expand_even(&s_v[ch][lr][lc >> 1], 1);
+            e[ch] = fvvdp::expand_tile_horizontal(s_v[ch][lr], lc);
         const float lbkg = fmaxf(e[bkg_ch], 0.1f);
         float con[4];
         const float* fp = fbase + (size_t)gy * W + gx;
@@ -157,42 +120,10 @@ expand_score_kernel(const float* __restrict__ fine, const float* __restrict__ co
     }
 }
 
-// out[f, c] = sum over tiles of partials[f, tile, c], in a fixed order
-__global__ void __launch_bounds__(kThreads)
-sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                    int n_tiles) {
-    __shared__ double s_red[2][kThreads];
-    const int f = blockIdx.x, tid = threadIdx.x;
-    const float* p = partials + (size_t)f * n_tiles * 2;
-    double s = 0.0, t = 0.0;
-    for (int i = tid; i < n_tiles; i += kThreads) {
-        s += p[2 * i];
-        t += p[2 * i + 1];
-    }
-    s_red[0][tid] = s;
-    s_red[1][tid] = t;
-    __syncthreads();
-    for (int half = kThreads / 2; half > 0; half >>= 1) {
-        if (tid < half) {
-            s_red[0][tid] += s_red[0][tid + half];
-            s_red[1][tid] += s_red[1][tid + half];
-        }
-        __syncthreads();
-    }
-    if (tid == 0) {
-        out[2 * f] = static_cast<float>(s_red[0][0]);
-        out[2 * f + 1] = static_cast<float>(s_red[1][0]);
-    }
-}
-
-dim3 tile_grid(int F, int H, int W) {
-    return dim3((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, F);
-}
-
 }  // namespace
 
 extern "C" int fvvdp_expand_score2_n_tiles(int H, int W) {
-    const dim3 g = tile_grid(1, H, W);
+    const dim3 g = fvvdp::tile_grid(1, H, W);
     return static_cast<int>(g.x * g.y);
 }
 
@@ -208,12 +139,12 @@ extern "C" int fvvdp_expand_score2(const float* fine, const float* coarse,
     if (n_grid < 1 || n_grid > kMaxGrid || bkg_ch < 0 || bkg_ch > 3)
         return static_cast<int>(cudaErrorInvalidValue);
     const ScoreParams sp{y0, dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta};
-    const dim3 grid = tile_grid(F, H, W);
+    const dim3 grid = fvvdp::tile_grid(F, H, W);
     expand_score_kernel<<<grid, kThreads, 0, stream>>>(fine, coarse, tables, partials, H,
                                                        W, h2, w2, n_grid, bkg_ch, sp);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    sum_partials_kernel<<<F, kThreads, 0, stream>>>(partials, out,
-                                                    static_cast<int>(grid.x * grid.y));
+    fvvdp::sum_partials_kernel<<<F, fvvdp::kSumThreads, 0, stream>>>(
+        partials, out, static_cast<int>(grid.x * grid.y));
     return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,15 @@ __device__ __forceinline__ float table_interp(const float* tab, int n, float u) 
     return tab[i0] * (1.0f - f) + tab[i1] * f;
 }
 
+// The knot pair and fraction of that lookup, for callers that read several
+// tables (or a strided one) at the same coordinate.
+__device__ __forceinline__ void table_knots(float u, int n, int* i0, int* i1, float* f) {
+    const int k = min(max(static_cast<int>(floorf(u)), 0), n - 1);
+    *i0 = k;
+    *i1 = min(k + 1, n - 1);
+    *f = u - static_cast<float>(k);
+}
+
 // D^beta of the mutual masking model in log2 space; T, R are contrasts and
 // ls the per-pixel log2 of the normalisation (log2 sensitivity + log2 of
 // the correction):

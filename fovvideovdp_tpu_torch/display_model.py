@@ -164,7 +164,8 @@ class fvvdp_display_photo_gog(fvvdp_display_photometry):
 # ---------------------------------------------------------------------------
 
 class fvvdp_display_geometry:
-    """Screen size and viewing distance -> pixels per degree at the centre."""
+    """Screen size, viewing distance or field of view -> pixels per degree
+    and the off-axis resolution magnification."""
 
     def __init__(self, resolution: Sequence[int], distance_m=None,
                  distance_display_heights=None, fov_horizontal=None,
@@ -231,9 +232,40 @@ class fvvdp_display_geometry:
         self.ppd_centre = 1 / (2 * math.degrees(
             math.atan(0.5 * self.display_size_m[0] / self.resolution[0] / self.distance_m)))
 
-    def get_ppd(self) -> float:
-        """Pixels per degree at the centre of the screen."""
-        return self.ppd_centre
+    def get_ppd(self, view_dir=None):
+        """Pixels per degree: the scalar at the centre of the screen, or a
+        map for ``view_dir`` (2, H, W), a tensor of view directions in
+        degrees (centre origin, y up)."""
+        if view_dir is None:
+            return self.ppd_centre
+        if self.fixed_ppd is not None:
+            return torch.full(view_dir.shape[-2:], float(self.fixed_ppd),
+                              dtype=torch.float32, device=view_dir.device)
+        view_angle = torch.sqrt(torch.sum(view_dir ** 2, dim=0))
+        view_angle = torch.clamp(view_angle, max=89.9)  # avoid the tan singularity
+        delta = (1.0 / self.ppd_centre) / 2
+        tan_delta = math.tan(math.radians(delta))
+        tan_a = torch.tan(torch.deg2rad(view_angle))
+        return self.ppd_centre * (torch.tan(torch.deg2rad(view_angle + delta)) - tan_a) \
+            / tan_delta
+
+    def pix2view_direction(self, resolution_pix, x_pix: torch.Tensor,
+                           y_pix: torch.Tensor) -> torch.Tensor:
+        """Pixel coordinates (tensors) -> view direction in degrees (2, ...).
+        ``resolution_pix`` is (width, height) of the (sub-band) image the
+        coordinates refer to; the top-left pixel is (0, 0)."""
+        res_w, res_h = float(resolution_pix[0]), float(resolution_pix[1])
+        x_m = (x_pix - res_w / 2) * self.display_size_m[0] / res_w
+        y_m = -(y_pix - res_h / 2) * self.display_size_m[1] / res_h
+        return torch.stack((torch.rad2deg(torch.atan(x_m / self.distance_m)),
+                            torch.rad2deg(torch.atan(y_m / self.distance_m))), dim=0)
+
+    def get_resolution_magnification(self, view_dir: torch.Tensor) -> torch.Tensor:
+        """Relative resolution magnification at the given view directions."""
+        if self.fixed_ppd is not None:
+            return torch.ones(view_dir.shape[-2:], dtype=torch.float32,
+                              device=view_dir.device)
+        return self.get_ppd(view_dir) / self.get_ppd()
 
     @classmethod
     def load(cls, display_name: str) -> "fvvdp_display_geometry":

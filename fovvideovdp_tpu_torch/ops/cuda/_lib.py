@@ -29,9 +29,13 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair")
+KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
+           "band_score", "band_score2", "band_score2_fov")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# y0, dy, Ymin, Ymax, p, then the masking exponents and log2 scalars up to beta
+_SCORE1 = [_F] * 9      # ..., q, lc10, lcorr, beta
+_SCORE2 = [_F] * 10     # ..., q_s, q_t, lc10, lcorr, beta
 # C signature of each library's entry point: (library stem, symbol, argtypes)
 _SIGNATURES = {
     # x, y, N, H, W, stream
@@ -40,14 +44,27 @@ _SIGNATURES = {
     # fine, coarse, tables, partials, out, F, H, W, h2, w2, n_grid, bkg_ch,
     # y0, dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta, stream
     "expand_score2": ("band_pipeline", "fvvdp_expand_score2",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P]),
+                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_SCORE2, _P]),
     # H, W -> number of fine tiles (the partials' middle dimension)
     "expand_score2_n_tiles": ("band_pipeline", "fvvdp_expand_score2_n_tiles",
                               [_I, _I]),
     # carry_t, new_t, carry_r, new_r, taps, out, ncarry, nnew, fl, HW, stream
     "temporal_pair": ("temporal", "fvvdp_temporal_pair",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # fine, coarse, contrast, lbkg, F, C, H, W, h2, w2, bkg_ch, stream
+    "expand_contrast": ("expand_contrast", "fvvdp_expand_contrast",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # hw -> number of pixel blocks (the partials' middle dimension)
+    "band_score_n_blocks": ("band_score", "fvvdp_band_score_n_blocks", [_I]),
+    # T, R, L, table, partials, out, F, hw, fs_T, fs_R, fs_L, n_grid, scalars, stream
+    "band_score": ("band_score", "fvvdp_band_score",
+                   [_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, *_SCORE1, _P]),
+    # band, L, tables, partials, out, F, hw, fs_L, n_grid, scalars, stream
+    "band_score2": ("band_score", "fvvdp_band_score2",
+                    [_P, _P, _P, _P, _P, _I, _I, _L, _I, *_SCORE2, _P]),
+    # band, L, tabs_s, tabs_t, partials, out, F, hw, fs_L, n_grid, scalars, stream
+    "band_score2_fov": ("band_score", "fvvdp_band_score2_fov",
+                        [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, *_SCORE2, _P]),
 }
 
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -5,60 +5,16 @@ Replaces the TPU kernel ``fovvideovdp_tpu/ops/pallas/band_pipeline.py``
 ``_expand_score_kernel``.  The plain version mirrors the JAX fallback
 ``_expand_score2_jnp``: the materialised expand + Weber contrast
 (``ops/pyramid.py``) followed by the direct-form two-channel band score
-(``fovvideovdp_tpu/ops/pallas/band_score.py:_band_score2_jnp``).
+(``ops/cuda/band_score.py``, the JAX package's ``_band_score2_jnp``).
 """
 from __future__ import annotations
-
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from fovvideovdp_tpu_torch.csf import _np
 from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda.band_score import ScoreMeta, band_score_plain
 from fovvideovdp_tpu_torch.ops.pyramid import _expand_contrast_plain, ceildiv
-
-
-class ScoreMeta(NamedTuple):
-    """Scalars of the band score, as Python floats."""
-    y0: float
-    dy: float
-    Ymin: float
-    Ymax: float
-    p: float
-    q_s: float
-    q_t: float
-    c10: float
-    corr: float
-    beta: float
-
-
-def score_meta(lut, p, q_sust, q_trans, mask_c, sens_corr, beta) -> ScoreMeta:
-    Y_log = _np(lut["Y_log"])
-    Y = _np(lut["Y"])
-    return ScoreMeta(float(Y_log[0]),
-                     float((Y_log[-1] - Y_log[0]) / (Y_log.shape[0] - 1)),
-                     float(Y[0]), float(Y[-1]),
-                     float(p), float(q_sust), float(q_trans),
-                     float(10.0 ** mask_c), float(sens_corr), float(beta))
-
-
-def _band_score_plain(T, R, L, table, m: ScoreMeta, q: float) -> torch.Tensor:
-    """Per-frame sum over pixels of D^beta for one channel (direct form)."""
-    n = table.shape[0]
-    u = torch.clamp((torch.log2(torch.clamp(L, m.Ymin, m.Ymax)) - m.y0) / m.dy,
-                    0.0, float(n - 1))
-    i0 = torch.floor(u).to(torch.int64)
-    f = u - i0.to(u.dtype)
-    i1 = torch.clamp(i0 + 1, max=n - 1)
-    S_log = table[i0] * (1.0 - f) + table[i1] * f
-    Se = torch.exp2(S_log) * m.corr
-    Tn = T * Se
-    Rn = R * Se
-    M = m.c10 * torch.minimum(torch.abs(Tn), torch.abs(Rn))
-    D = torch.clamp(torch.pow(torch.abs(Tn - Rn), m.p) / (1.0 + torch.pow(M, q)),
-                    max=1e4)
-    return torch.sum(torch.pow(D, m.beta), dim=(-2, -1))
 
 
 def expand_score2_plain(g_fine, g_coarse, tables, meta: ScoreMeta,
@@ -67,8 +23,8 @@ def expand_score2_plain(g_fine, g_coarse, tables, meta: ScoreMeta,
     contrast, L_bkg = _expand_contrast_plain(g_fine, g_coarse, size, bkg_channel)
     L = L_bkg[:, 0]
     return torch.stack([
-        _band_score_plain(contrast[:, 0], contrast[:, 1], L, tables[0], meta, meta.q_s),
-        _band_score_plain(contrast[:, 2], contrast[:, 3], L, tables[1], meta, meta.q_t),
+        band_score_plain(contrast[:, 0], contrast[:, 1], L, tables[0], meta, meta.q_s),
+        band_score_plain(contrast[:, 2], contrast[:, 3], L, tables[1], meta, meta.q_t),
     ], dim=-1)
 
 

@@ -1,6 +1,6 @@
 """Gaussian pyramid: plan, plain reduce/expand and level construction.
 
-Counterpart of ``fovvideovdp_tpu/ops/pyramid.py:29-145,148-152,192-253``.
+Counterpart of ``fovvideovdp_tpu/ops/pyramid.py:29-145,148-152,192-298``.
 The plain functions are written with slicing arithmetic (as the JAX
 package's are) and are the CPU path and the reference the CUDA kernels are
 held against.  Edge handling follows the reference bit for bit, including
@@ -8,7 +8,7 @@ its quirk of selecting the last-column correction by the ROW parity.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -162,3 +162,49 @@ class PyramidPlan:
         for _ in range(self.height):
             levels.append(gausspyr_reduce(levels[-1]))
         return levels
+
+    def decompose(self, image: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Plain Laplacian decomposition.  Returns (Laplacian bands + base,
+        Gaussian levels)."""
+        gpyr = self.gaussian_pyramid(image)
+        lpyr = [gpyr[i] - gausspyr_expand(gpyr[i + 1], self.level_shapes[i])
+                for i in range(len(gpyr) - 1)]
+        lpyr.append(gpyr[-1])
+        return lpyr, gpyr
+
+    @staticmethod
+    def _contrast_pairs(gpyr: Sequence[torch.Tensor], bkg_channel: int
+                        ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """(contrast (F, C, h, w), L_bkg (F, 1, h, w)) of each scored level,
+        finest first, through the expand_contrast wrapper: the CUDA kernel
+        on the card, the plain version on the CPU."""
+        from fovvideovdp_tpu_torch.ops.cuda.expand_contrast import expand_contrast
+        for fine, coarse in zip(gpyr[:-1], gpyr[1:]):
+            yield expand_contrast(fine, coarse, bkg_channel)
+
+    def contrast_levels(self, image: torch.Tensor, bkg_channel: int = 1
+                        ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        """The contrast pyramid of ``image`` (F, C, H, W) one level at a
+        time: each Laplacian band as Weber contrast (clamped to <= 1000)
+        against the expanded next Gaussian level of channel ``bkg_channel``
+        (the background luminance, clamped to >= 0.1 cd/m^2).  A caller that
+        drops each pair before taking the next holds one level's contrast
+        at a time, not the pyramid's."""
+        return self._contrast_pairs(self.gaussian_pyramid(image), bkg_channel)
+
+    def decompose_contrast(self, image: torch.Tensor, bkg_channel: int = 1
+                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """The whole contrast pyramid at once.  Returns (contrast bands +
+        the Gaussian base, L_bkg per level)."""
+        gpyr = self.gaussian_pyramid(image)
+        pairs = list(self._contrast_pairs(gpyr, bkg_channel))
+        return [c for c, _ in pairs] + [gpyr[-1]], [lb for _, lb in pairs]
+
+    @staticmethod
+    def reconstruct(bands: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Sum of the expanded bands, coarsest first."""
+        img = bands[-1]
+        for i in reversed(range(len(bands) - 1)):
+            img = gausspyr_expand(img, (bands[i].shape[-2], bands[i].shape[-1]))
+            img = img + bands[i]
+        return img

@@ -114,3 +114,63 @@ def test_image_transient_channel_scores_exactly_zero(goldens):
     g = goldens("image_path_uint8")
     _, stats = fv_port.fvvdp(device="cpu").predict(g["test"], g["ref"], dim_order="HWC")
     assert np.all(stats["Q_per_ch"][:, 1] == 0.0)
+
+
+# ---------------------------------------------------------------------------
+# per-channel LUTs: the temporal channels' Y grids differ
+# ---------------------------------------------------------------------------
+
+def _cut_omega5_lut(jax_metric):
+    """The JAX metric's LUT pair with the omega = 5 one cut by its last Y
+    knot (above any display's peak, so the scores barely move)."""
+    lut5 = dict(jax_metric._luts[1])
+    for k in ("Y", "Y_log", "S_log"):
+        lut5[k] = lut5[k][:-1]
+    jax_metric._luts = (jax_metric._luts[0], lut5)
+    jax_metric._cores = {}
+
+
+def test_luts_on_different_y_grids_survive_state_from_numpy():
+    jm = fv_jax.fvvdp(display_name="standard_4k")
+    _cut_omega5_lut(jm)
+    params, luts = state.state_from_numpy(
+        jm.parameters, [{k: np.asarray(l[k]) for k in csf.LUT_FIELDS} for l in jm._luts],
+        "cpu")
+    assert luts[0]["Y_log"].shape == (32,) and luts[1]["Y_log"].shape == (31,)
+    assert luts[0]["S_log"].shape == (32, 32, 32) and luts[1]["S_log"].shape == (31, 32, 32)
+    for port_lut, jax_lut in zip(luts, jm._luts):
+        for k in csf.LUT_FIELDS:
+            np.testing.assert_array_equal(port_lut[k].numpy(), np.asarray(jax_lut[k]))
+        assert port_lut["_uniform"] == {ax: True for ax in ("Y_log", "rho_log", "ecc_sqrt")}
+    assert all(isinstance(v, float) for v in params.values() if not isinstance(v, str))
+
+
+@pytest.mark.parametrize("kind", ["video", "image"])
+def test_per_channel_luts_match_jax_pallas_route(kind):
+    """JAX scores per-channel LUTs with band_score_pallas once per channel
+    (here through the interpreter); the port with its band_score wrapper."""
+    from fovvideovdp_tpu.ops import pallas as pallas_cfg
+    rng = np.random.default_rng(50)
+    shape = (72, 256, 4) if kind == "video" else (72, 256)
+    ref = rng.random(shape, dtype=np.float32)
+    test = np.clip(ref + rng.normal(0, 0.04, shape).astype(np.float32), 0, 1)
+    call = dict(dim_order="HWF", frames_per_second=30) if kind == "video" \
+        else dict(dim_order="HW")
+    jm = fv_jax.fvvdp(display_name="standard_4k")
+    _cut_omega5_lut(jm)
+    pm = fv_port.fvvdp(display_name="standard_4k", device="cpu")
+    _carry_state(jm, pm)
+    core = pm._get_core(256, 72)
+    assert not core._luts_share_Y and core.route == "banded"
+    assert [t.shape[0] for t in core._channel_tables[0]] == [32, 31]
+    with pallas_cfg.forced(True, interpret=True):
+        Q_j, s_j = jm.predict(test, ref, **call)
+    Q_p, s_p = pm.predict(test, ref, **call)
+    assert abs(Q_p - Q_j) <= 0.01
+    np.testing.assert_allclose(s_p["Q_per_ch"], s_j["Q_per_ch"], **GOLDEN_BAR)
+    # and the default LUT pair gives (almost) the same scores
+    Q_d, s_d = fv_port.fvvdp(display_name="standard_4k", device="cpu").predict(
+        test, ref, **call)
+    assert abs(Q_p - Q_d) <= 1e-3
+    if kind == "image":
+        assert np.all(s_p["Q_per_ch"][:, 1] == 0.0)

@@ -24,6 +24,7 @@ from fovvideovdp_tpu_torch.display_model import fvvdp_display_geometry
 from fovvideovdp_tpu_torch.ops import masking, pyramid
 from fovvideovdp_tpu_torch.ops import temporal as ptemp
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
+from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda import score_math
 from fovvideovdp_tpu_torch.ops.cuda.reduce import gausspyr_reduce
 from fovvideovdp_tpu_torch.ops.cuda.temporal import temporal_pair
@@ -99,7 +100,7 @@ def test_expand_score2_matches_jax_pallas_kernel(hw):
     with pallas_cfg.forced(True, interpret=True):
         want = np.asarray(jbp.expand_score2(jnp.asarray(gf), jnp.asarray(gc), tables,
                                             lut, *args), np.float64)
-    meta = bp.score_meta({k: np.asarray(lut[k]) for k in ("Y_log", "Y")}, *args)
+    meta = bs.score_meta({k: np.asarray(lut[k]) for k in ("Y_log", "Y")}, *args)
     got = bp.expand_score2(torch.from_numpy(gf), torch.from_numpy(gc),
                            torch.from_numpy(tables), meta).double().numpy()
     rel = np.max(np.abs(got - want) / np.abs(want))

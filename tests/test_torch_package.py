@@ -96,13 +96,17 @@ def test_data_copies_match_the_jax_package(fname):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(foveated=True), dict(heatmap="raw"), dict(heatmap="threshold"),
-    dict(device_heatmap=True), dict(do_temporal_channels=False),
+    dict(do_temporal_channels=False),
     dict(ignore_boundary_pixels=True), dict(band_callback=print),
     dict(content_mapping=object()), dict(use_checkpoints=True),
+    dict(foveated=True, content_mapping=object()),
+    dict(heatmap="raw", ignore_boundary_pixels=True),
     dict(parameter_overrides={"local_adapt": "simple"}),
+    dict(parameter_overrides={"local_adapt": "global"}),
+    dict(parameter_overrides={"local_adapt": "gpyr2"}),
     dict(parameter_overrides={"contrast": "log"}),
     dict(parameter_overrides={"masking_model": "contrast_difference"}),
+    dict(parameter_overrides={"masking_model": "contrast_difference_perc_norm"}),
     dict(parameter_overrides={"pu_dilate": 1.0}),
     dict(parameter_overrides={"csf_sigma": -2.0}),   # no shipped LUT
 ], ids=lambda kw: "-".join(f"{k}" for k in kw) + "-" + "-".join(
@@ -112,11 +116,26 @@ def test_unsupported_options_raise(kwargs):
         fvvdp(device="cpu", **kwargs)
 
 
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(heatmap="contours"), ValueError),
+    (dict(heatmap_dtype="float32"), ValueError),
+    (dict(heatmap="raw", heatmap_dtype="uint8"), ValueError),
+    (dict(temp_padding="mirror"), ValueError),
+], ids=["heatmap-type", "heatmap-dtype", "uint8-raw", "temp-padding"])
+def test_constructor_rejects_bad_values(kwargs, error):
+    with pytest.raises(error):
+        fvvdp(device="cpu", **kwargs)
+
+
 def test_unsupported_call_options_raise():
     fv = fvvdp(device="cpu")
     test, ref = _tiny_video()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fv.predict(test, ref, dim_order="HWCF", frames_per_second=30, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        fvvdp(device="cpu", foveated=True).predict(
+            test, ref, dim_order="HWCF", frames_per_second=30,
+            fixation_point=np.tile([20.0, 10.0], (6, 1)))
     vs = fvt.fvvdp_video_source_array(test, ref, 30, dim_order="HWCF",
                                       display_photometry=fv.display_photometry,
                                       device="cpu")
@@ -126,16 +145,25 @@ def test_unsupported_call_options_raise():
 
 @pytest.mark.parametrize("broken", ["non_uniform_Y", "unshared_Y"])
 def test_luts_the_fused_scorer_cannot_take_raise(broken):
+    """A non-uniform Y grid is refused; LUTs on different Y grids leave the
+    fused scorer for the per-channel one (and score)."""
     fv = fvvdp(device="cpu")
     luts = [dict(l) for l in fv._luts]
     if broken == "non_uniform_Y":
         for l in luts:
             l["_uniform"] = dict(l["_uniform"], Y_log=False)
-    else:
-        luts[1]["Y_log"] = luts[1]["Y_log"] + 0.5
+        fv.load_state(fv.parameters, luts)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fv._get_core(64, 48)
+        return
+    luts[1]["Y_log"] = luts[1]["Y_log"] + 0.5
     fv.load_state(fv.parameters, luts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fv._get_core(64, 48)
+    core = fv._get_core(64, 48)
+    assert not core._luts_share_Y and core.route == "banded"
+    assert not core._score_tables and len(core._channel_tables) == core.plan.height
+    test, ref = _tiny_video()
+    q, _ = fv.predict(test, ref, dim_order="HWCF", frames_per_second=30)
+    assert np.isfinite(q)
 
 
 def test_cpu_run_leaves_launch_counts_at_zero():
@@ -144,7 +172,9 @@ def test_cpu_run_leaves_launch_counts_at_zero():
     q, _ = fvvdp(display_name="standard_fhd", device="cpu", block_frames=4).predict(
         test, ref, dim_order="HWCF", frames_per_second=30)
     q_img, _ = fvvdp(device="cpu").predict(test[..., 0], ref[..., 0], dim_order="HWC")
-    assert np.isfinite(q) and np.isfinite(q_img)
+    q_fov, _ = fvvdp(device="cpu", foveated=True, heatmap="raw").predict(
+        test[..., 0], ref[..., 0], dim_order="HWC")
+    assert np.isfinite(q) and np.isfinite(q_img) and np.isfinite(q_fov)
     assert cuda_ops.launch_counts() == {k: 0 for k in cuda_ops.KERNELS}
 
 
@@ -229,12 +259,86 @@ def test_temporal_kernel_matches_plain(cuda, fps, ncarry, nnew):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 4, 96, 256), (1, 4, 67, 131), (3, 2, 37, 131),
+                                   (1, 4, 17, 30), (1, 2, 2, 2), (2, 4, 135, 240)])
+def test_expand_contrast_kernel_matches_plain(cuda, shape):
+    from fovvideovdp_tpu_torch.ops.cuda.expand_contrast import (expand_contrast,
+                                                                expand_contrast_plain)
+    F, C, H, W = shape
+    fine = _rand(shape, 4).to(cuda)
+    coarse = _rand((F, C, -(-H // 2), -(-W // 2)), 5).to(cuda)
+    for bkg in (0, 1):
+        got_c, got_l = expand_contrast(fine, coarse, bkg)
+        want_c, want_l = expand_contrast_plain(fine, coarse, bkg)
+        assert got_l.shape == (F, 1, H, W)
+        torch.testing.assert_close(got_c.cpu(), want_c.cpu(), rtol=2e-5, atol=1e-4)
+        torch.testing.assert_close(got_l.cpu(), want_l.cpu(), rtol=1e-5, atol=1e-4)
+
+
+def _band_inputs(F, h, w, n, device):
+    rng = np.random.default_rng(6)
+    band = torch.from_numpy((rng.standard_normal((F, 4, h, w)) * 0.05).astype(np.float32))
+    band[0, 1, :2] = band[0, 0, :2]          # D(T, T) = 0
+    band[0, 2, 2:4] = 0.0                    # min(|T|, |R|) = 0
+    L = torch.from_numpy((10.0 ** rng.uniform(-1.3, 2.6, (F, h, w))).astype(np.float32))
+    tabs_s = torch.from_numpy(rng.uniform(-5, 10, (n, h, w)).astype(np.float32))
+    tabs_t = tabs_s + torch.from_numpy(rng.uniform(-1, 1, (n, h, w)).astype(np.float32))
+    return [t.to(device) for t in (band, L, tabs_s, tabs_t)]
+
+
+def _rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Fhw", [(2, 64, 256), (3, 37, 200), (40, 9, 13), (1, 1, 1),
+                                 (33, 68, 120)])
+def test_band_score_kernels_match_plain(cuda, Fhw):
+    """band_score (channel views of the stack, no copy), band_score2 and
+    band_score2_fov: per-frame sums within 1e-4 relative of the plain
+    versions (the kernels score in log2 space, the plain ones with powers)."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    F, h, w = Fhw
+    core = fvvdp(device=cuda)._get_core(64, 64)
+    meta, tables = core._meta[1], core._score_tables[1]
+    n = tables.shape[1]
+    band, L, tabs_s, tabs_t = _band_inputs(F, h, w, n, cuda)
+    for cc, q in enumerate((meta.q_s, meta.q_t)):
+        T, R = band[:, 2 * cc], band[:, 2 * cc + 1]
+        assert _rel(bs.band_score(T, R, L, tables[cc], meta, q),
+                    bs.band_score_plain(T, R, L, tables[cc], meta, q)) < 1e-4
+    assert _rel(bs.band_score2(band, L, tables, meta),
+                bs.band_score2_plain(band, L, tables, meta)) < 1e-4
+    assert _rel(bs.band_score2_fov(band, L, tabs_s, tabs_t, meta),
+                bs.band_score2_fov_plain(band, L, tabs_s, tabs_t, meta)) < 2e-4
+
+
+@pytest.mark.gpu
+def test_band_score_wrappers_raise_on_cuda_tensors_they_cannot_take(cuda):
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    from fovvideovdp_tpu_torch.ops.cuda.expand_contrast import expand_contrast
+    core = fvvdp(device=cuda)._get_core(64, 64)
+    meta, tables = core._meta[0], core._score_tables[0]
+    band, L, tabs_s, tabs_t = _band_inputs(2, 16, 24, tables.shape[1], cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.band_score2(band.transpose(2, 3), L.transpose(1, 2), tables, meta)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.band_score(band[:, 0, :, ::2], band[:, 1, :, ::2], L[:, :, ::2], tables[0],
+                      meta, meta.q_s)
+    with pytest.raises(ValueError):
+        bs.band_score2_fov(band, L, tabs_s[:, :8], tabs_t[:, :8], meta)
+    with pytest.raises(TypeError):
+        expand_contrast(band.double(), band[:, :, ::2, ::2].double())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("content", ["video_uint8", "image_uint16"])
 def test_card_predict_matches_cpu_and_counts_launches(cuda, content):
     if content == "video_uint8":
         test, ref = _tiny_video(shape=(67, 131, 3, 10))
         kw = dict(dim_order="HWCF", frames_per_second=30)
-        launched = cuda_ops.KERNELS
+        launched = ("gausspyr_reduce", "expand_score2", "temporal_pair")
     else:
         g = np.load(os.path.join(REPO, "tests", "goldens", "image_path_uint16.npz"))
         test, ref = g["test"], g["ref"]
@@ -250,3 +354,45 @@ def test_card_predict_matches_cpu_and_counts_launches(cuda, content):
     # the kernel scores in log2 space where the plain version uses powers:
     # per-frame sums agree to ~1e-4 relative, Q_per_ch to its 1/beta power
     np.testing.assert_allclose(s_gpu["Q_per_ch"], s_cpu["Q_per_ch"], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["foveated", "foveated_image", "heatmap",
+                                   "per_channel_luts"])
+def test_card_routes_match_cpu_and_launch_their_kernels(cuda, route):
+    test, ref = _tiny_video(shape=(67, 131, 3, 10))
+    kw = dict(dim_order="HWCF", frames_per_second=30)
+    opts = dict(display_name="htc_vive_pro")
+    launched, idle = ("expand_contrast",), ("expand_score2",)
+    if route.startswith("foveated"):
+        opts["foveated"] = True
+        kw["fixation_point"] = np.array([30, 20])
+        launched += ("band_score2_fov",)
+        if route == "foveated_image":
+            test, ref, kw = test[..., 0], ref[..., 0], dict(
+                dim_order="HWC", fixation_point=np.array([30, 20]))
+    elif route == "heatmap":
+        opts["heatmap"] = "threshold"
+    else:
+        launched += ("band_score",)
+
+    def metric(device, **extra):
+        fv = fvvdp(device=device, **opts, **extra)
+        if route == "per_channel_luts":
+            luts = [dict(l) for l in fv._luts]
+            luts[1] = dict(luts[1], Y=luts[1]["Y"][:-1], Y_log=luts[1]["Y_log"][:-1],
+                           S_log=luts[1]["S_log"][:-1])
+            fv.load_state(fv.parameters, luts)
+        return fv
+
+    q_cpu, s_cpu = metric("cpu").predict(test, ref, **kw)
+    cuda_ops.reset_launch_counts()
+    q_gpu, s_gpu = metric(cuda, block_frames=4).predict(test, ref, **kw)
+    counts = cuda_ops.launch_counts()
+    assert all(counts[k] > 0 for k in launched), counts
+    assert all(counts[k] == 0 for k in idle), counts
+    assert abs(q_gpu - q_cpu) <= 1e-3
+    np.testing.assert_allclose(s_gpu["Q_per_ch"], s_cpu["Q_per_ch"], rtol=1e-3, atol=1e-5)
+    if route == "heatmap":
+        np.testing.assert_allclose(s_gpu["heatmap"].astype(np.float32),
+                                   s_cpu["heatmap"].astype(np.float32), atol=5e-3)
