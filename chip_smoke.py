@@ -10,7 +10,8 @@ Phases, each raising on failure:
      shapes the 4K main path gives it (one video block of the clip below,
      every pyramid level), timed with CUDA events (median of 10), beside
      its bound and, where one exists, a library call computing the same
-     function;
+     function; mov_score with a sweeping gaze on two tables, on one table
+     and an offset, on an image, and with the whole LUT in global memory;
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
@@ -21,6 +22,13 @@ Phases, each raising on failure:
      fvvdp(foveated=True) (expand_contrast and band_score2_fov launch,
      expand_score2 does not); a 1440x1600 8-frame htc_vive_pro video on
      the card against device="cpu";
+  6b. moving-gaze foveation: the clip with a gaze per frame sweeping corner
+     to corner (expand_contrast and mov_score launch once per level per
+     block, band_score2_fov does not, no table is built); the clip with the
+     gaze held at the centre through both foveated routes, in turns; the
+     first frame with a (1, 2) gaze; 8 frames with a raw heatmap (composed
+     route, mov_score does not launch); the 1440x1600 video with a moving
+     gaze against device="cpu";
   7. heatmaps: the 4K image with "threshold" and "raw" maps (the raw map
      against device="cpu"), 8 frames with a "supra-threshold" uint8 map kept
      on the device;
@@ -51,6 +59,7 @@ from fovvideovdp_tpu_torch.ops.cuda import _lib
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda import expand_contrast as ec
+from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.cuda import temporal as tmp
 from fovvideovdp_tpu_torch.ops.pyramid import K5
@@ -71,6 +80,8 @@ SFU_PER_SM_CLOCK = 16
 SFU_PER_PIXEL = 11
 # the same in the band scorers: 1 + 5 per channel
 SFU_PER_PIXEL_1CH = 6
+# mov_score: the 11 of two channels and two square roots (eccentricity, its axis)
+SFU_PER_PIXEL_MOV = 13
 HEAT_FRAMES = 8           # depth of the heatmap and per-channel-LUT videos
 
 SOURCES = {
@@ -99,12 +110,16 @@ SOURCES = {
     "band_score2_fov": dict(
         source="fovvideovdp_tpu_torch/csrc/band_score.cu",
         replaces="fovvideovdp_tpu/ops/pallas/band_score.py:219", also_replaces=[]),
+    "mov_score": dict(
+        source="fovvideovdp_tpu_torch/csrc/mov_score.cu",
+        replaces="fovvideovdp_tpu/ops/pallas/mov_score.py:51", also_replaces=[]),
 }
 # the path whose run gives each kernel's "launches" in the kernels line
 # (band_score2 is on no path of the package: it is held in phase 3 only)
 PATH_OF = {"gausspyr_reduce": "video", "expand_score2": "video", "temporal_pair": "video",
            "expand_contrast": "foveated_video", "band_score2_fov": "foveated_video",
-           "band_score": "per_channel_video", "band_score2": None}
+           "band_score": "per_channel_video", "band_score2": None,
+           "mov_score": "moving_gaze_video"}
 
 
 def synth_clip(h, w, n_frames):
@@ -142,7 +157,13 @@ def time_ms(fn, runs=10, warmup=2):
     return float(np.median(times))
 
 
-def split_timings(fv, content, dim_order, dev, runs=3):
+def sweeping_gaze(w, h, n):
+    """A gaze per frame, in pixels, from the top-left corner to the bottom-right."""
+    return np.stack([np.linspace(0.0, w - 1.0, n), np.linspace(0.0, h - 1.0, n)],
+                    axis=1).astype(np.float32)
+
+
+def split_timings(fv, content, dim_order, dev, runs=3, **predict_kw):
     """Median seconds of building the array source (upload included) and of
     predict_video_source on it, each ending in a synchronise."""
     src_t, score_t = [], []
@@ -153,7 +174,7 @@ def split_timings(fv, content, dim_order, dev, runs=3):
                                           device=dev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        fv.predict_video_source(vs)
+        fv.predict_video_source(vs, **predict_kw)
         t2 = time.perf_counter()
         src_t.append(t1 - t0)
         score_t.append(t2 - t1)
@@ -353,6 +374,62 @@ def check_band_scores(levels, core_pc, core_2, core_fov, fov_tabs, sfu_rate, cas
                 main_path=True), f"level {bb} ({note})")
 
 
+def check_mov_score(levels, core_fov, sfu_rate, cases):
+    """mov_score at every level of one block: the shipped LUT pair with a
+    gaze sweeping corner to corner (two tables in shared memory: the main
+    path's instance), the one-table arm (the omega = 5 table replaced by its
+    mean offset from the omega = 0 one), an image (one frame, zero transient
+    contrast) and the LUT with every knot kept, which the kernel reads from
+    global memory."""
+    plan = core_fov.plan
+    n_frames = levels[0][0].shape[0]
+    gaze_dir = core_fov._gaze_directions(torch.from_numpy(
+        sweeping_gaze(plan.W, plan.H, n_frames)))
+    for bb, (band, L_bkg) in enumerate(levels):
+        L = L_bkg[:, 0]
+        Fr, _, h, w = band.shape
+        vd = core_fov._band_view_dir[bb]
+        d = core_fov._moving_band_data(bb)
+        full = core_fov._moving_band_data(bb, windowed=False)
+        one = d["meta"]._replace(off5=float((d["V2_5"] - d["V2"]).mean().item()))
+        image = band[:1].clone()
+        image[:, 2:] = 0.0
+        runs = [
+            ("two tables", True, (band, L, vd, d["t_r"], gaze_dir, d["V2"], d["V2_5"], d["meta"])),
+            ("one table and off5", False, (band, L, vd, d["t_r"], gaze_dir, d["V2"], None, one)),
+            ("image", False, (image, L[:1], vd, d["t_r"], gaze_dir[:1], d["V2"], d["V2_5"],
+                              d["meta"])),
+            ("whole LUT, global memory", False,
+             (band, L, vd, full["t_r"], gaze_dir, full["V2"], full["V2_5"], full["meta"])),
+        ]
+        for note, main_path, args in runs:
+            meta = args[-1]
+            n_e = args[5].shape[0]
+            shared = ms.lut_in_shared(n_e, meta)
+            if shared != (not note.startswith("whole LUT")):
+                raise AssertionError(f"mov_score ({note}): LUT in shared memory is {shared}")
+            got, want = ms.band_score2_mov(*args), ms.band_score2_mov_plain(*args)
+            torch.cuda.synchronize()
+            rel = rel_err(got, want)
+            err = (got.double() - want.double()).abs().max().item()
+            ok = rel <= 2e-4 and bool(torch.isfinite(got).all())
+            if note == "image":
+                ok = ok and bool((got[:, 1] == 0.0).all())
+            del got, want
+            ms_k = time_ms(lambda: ms.band_score2_mov(*args))
+            plain_ms = time_ms(lambda: ms.band_score2_mov_plain(*args), runs=3, warmup=1)
+            nf = args[0].shape[0]
+            lut_floats = args[5].numel() * (1 if args[6] is None else 2)
+            b_ms, b_by = bound(4 * (5 * nf * h * w + 3 * h * w + lut_floats + 4 * nf),
+                               SFU_PER_PIXEL_MOV * nf * h * w, sfu_rate)
+            add_row(cases, dict(
+                case="mov_score", shape=[nf, h, w], note=f"{note}, LUT {n_e} x {meta.ny} x "
+                f"{meta.nr} in {'shared' if shared else 'global'} memory", max_abs_err=err,
+                max_rel_err=rel, tolerance="relative 2e-4 on per-frame sums", ok=ok,
+                launches_per_call=1, ms=ms_k, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, main_path=main_path), f"level {bb} ({note})")
+
+
 def expect_launches(path, launches, must, must_not):
     """A path's own expectation: kernels that must launch, kernels that must not."""
     bad = [k for k in must if launches[k] <= 0] + [k for k in must_not if launches[k] != 0]
@@ -485,8 +562,11 @@ def main():
     fv_pc.load_state(fv_pc.parameters, cut_luts(fv_pc))
     check_band_scores(levels, fv_pc._get_core(W, H), core, core_fov, fov_tabs, sfu_rate,
                       cases)
-    del levels, fov_tabs
+    del fov_tabs
     core_fov.drop_fov_tables()     # phase 6 builds them again, inside its first call
+    check_mov_score(levels, core_fov, sfu_rate, cases)
+    del levels
+    core_fov._mov_cache.clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -501,7 +581,7 @@ def main():
     expect_launches("video", launches,
                     must=("gausspyr_reduce", "expand_score2", "temporal_pair"),
                     must_not=("expand_contrast", "band_score", "band_score2",
-                              "band_score2_fov"))
+                              "band_score2_fov", "mov_score"))
     if not abs(q_video - GOLDEN_SYNTH_Q) <= JOD_TOL:
         raise AssertionError(f"4K clip JOD {q_video} vs the reference's {GOLDEN_SYNTH_Q}")
     q_pc = stats["Q_per_ch"]
@@ -535,7 +615,7 @@ def main():
         raise AssertionError(f"4K image JOD {q_img} not finite")
     expect_launches("image", img_launches, must=("gausspyr_reduce", "expand_score2"),
                     must_not=("temporal_pair", "expand_contrast", "band_score",
-                              "band_score2", "band_score2_fov"))
+                              "band_score2", "band_score2_fov", "mov_score"))
     img_times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -551,7 +631,7 @@ def main():
     img_t, img_r = test_v[..., 0], ref_v[..., 0]
     video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
     fov_must = ("gausspyr_reduce", "expand_contrast", "band_score2_fov")
-    fov_not = ("expand_score2", "band_score", "band_score2")
+    fov_not = ("expand_score2", "band_score", "band_score2", "mov_score")
     (q_fov, s_fov), launches = counted(lambda: fv_fov.predict(test_v, ref_v, **video_kw))
     path_launches["foveated_video"] = launches
     expect_launches("foveated video", launches, fov_must + ("temporal_pair",), fov_not)
@@ -579,8 +659,130 @@ def main():
     times, warm_s = warm_seconds(lambda: fv_fov.predict(img_t, img_r, dim_order="HWC"))
     emit(dict(phase="foveated_image", jod=q_fimg, warm_ms_median=1e3 * warm_s,
               launches=launches))
+
+    # 6b. moving-gaze foveation.  A metric of its own: a gaze per frame frees
+    # its core's fixed-gaze tables, and fv_fov's stay for the comparison.
+    n_levels = core.plan.height
+    mov_must = ("gausspyr_reduce", "expand_contrast", "mov_score")
+    mov_not = ("expand_score2", "band_score", "band_score2", "band_score2_fov")
+    fv_mov = fvt.fvvdp(display_name="standard_4k", foveated=True)
+    gaze = sweeping_gaze(W, H, N_FRAMES)
+    t0 = time.perf_counter()
+    (q_mov, s_mov), launches = counted(
+        lambda: fv_mov.predict(test_v, ref_v, fixation_point=gaze, **video_kw))
+    first_s = time.perf_counter() - t0
+    path_launches["moving_gaze_video"] = launches
+    expect_launches("moving-gaze video", launches, mov_must + ("temporal_pair",), mov_not)
+    core_mov = fv_mov._get_core(W, H)
+    B_mov = fv_mov._pick_block_size(H, W, N_FRAMES, "moving")
+    n_blocks = -(-N_FRAMES // B_mov)
+    if launches["mov_score"] != n_levels * n_blocks \
+            or launches["expand_contrast"] != n_levels * n_blocks:
+        raise AssertionError(f"moving-gaze video: {launches}, expected {n_levels} levels x "
+                             f"{n_blocks} blocks of mov_score and expand_contrast")
+    if core_mov._fov_table_cache or core_mov.moving_route != "banded":
+        raise AssertionError("moving-gaze video built fixed-gaze tables or left the kernel route")
+    q_pc = s_mov["Q_per_ch"]
+    if not np.isfinite(q_mov) or q_pc.shape != (n_levels, 2, N_FRAMES) \
+            or not np.all(np.isfinite(q_pc)) or not q_video < q_mov < 10.0:
+        raise AssertionError(f"moving-gaze 4K clip: JOD {q_mov} (default {q_video}), "
+                             f"Q_per_ch {q_pc.shape}")
+    # what stays on the card between calls (fv_fov's tables among it) is not the block's
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, warm_s = warm_seconds(
+        lambda: fv_mov.predict(test_v, ref_v, fixation_point=gaze, **video_kw))
+    peak = torch.cuda.max_memory_allocated()
+    src_s, score_s = split_timings(fv_mov, (test_v, ref_v, FPS), "HWCF", dev,
+                                   fixation_point=gaze)
+    emit(dict(phase="moving_gaze_video", jod=q_mov, first_call_s=first_s, warm_s_runs=times,
+              warm_s_median=warm_s, fps=N_FRAMES / warm_s, source_s_median=src_s,
+              score_s_median=score_s,
+              fov_table_bytes_resident=len(core_mov._fov_table_cache) * core_mov.fov_table_bytes(),
+              block_frames=B_mov, peak_bytes=peak, resident_bytes_before=resident,
+              peak_bytes_per_px_frame=(peak - resident) / (B_mov * H * W), launches=launches))
+
+    # the gaze held at the centre, through both routes in turns
+    centre_rows = np.tile(np.array(centre, np.float32), (N_FRAMES, 1))
+    routes = {"fixed": (fv_fov, dict(fixation_point=np.array(centre, np.float32))),
+              "moving": (fv_mov, dict(fixation_point=centre_rows))}
+    jods, warm, scores = {}, {"fixed": [], "moving": []}, {"fixed": [], "moving": []}
+    for route in ("fixed", "moving", "moving", "fixed"):
+        fv_r, kw_r = routes[route]
+        (jods[route], _), launches = counted(
+            lambda: fv_r.predict(test_v, ref_v, **kw_r, **video_kw))
+        expect_launches(f"centre gaze, {route} route", launches,
+                        ("band_score2_fov",) if route == "fixed" else ("mov_score",),
+                        ("mov_score",) if route == "fixed" else ("band_score2_fov",))
+        warm[route].append(warm_seconds(
+            lambda: fv_r.predict(test_v, ref_v, **kw_r, **video_kw))[1])
+        scores[route].append(split_timings(fv_r, (test_v, ref_v, FPS), "HWCF", dev, **kw_r)[1])
+    # a new metric's first call: the tables' build against the band data's
+    first = {}
+    for route in ("fixed", "moving"):
+        fv_new = fvt.fvvdp(display_name="standard_4k", foveated=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fv_new.predict(test_v, ref_v, **routes[route][1], **video_kw)
+        first[route] = time.perf_counter() - t0
+        fv_new.load_state(fv_new.parameters, fv_new._luts)
+        del fv_new
+    emit(dict(phase="centre_gaze_fixed_vs_moving", jod_fixed=jods["fixed"],
+              jod_moving=jods["moving"], warm_s_fixed=warm["fixed"],
+              warm_s_moving=warm["moving"], score_s_fixed=scores["fixed"],
+              score_s_moving=scores["moving"], first_call_s_fixed=first["fixed"],
+              first_call_s_moving=first["moving"], table_bytes_fixed=core_fov.fov_table_bytes(),
+              order="fixed, moving, moving, fixed"))
+    if not abs(jods["fixed"] - jods["moving"]) <= 1e-3 or not abs(jods["fixed"] - q_fov) <= 1e-6:
+        raise AssertionError(f"centre gaze: fixed route {jods['fixed']} (phase 6: {q_fov}), "
+                             f"moving route {jods['moving']}")
     fv_fov.load_state(fv_fov.parameters, fv_fov._luts)    # frees the 4K tables
-    del core_fov
+    del core_fov, routes
+
+    (q_mimg, s_mimg), launches = counted(lambda: fv_mov.predict(
+        img_t, img_r, dim_order="HWC", fixation_point=gaze[N_FRAMES // 3][None]))
+    expect_launches("moving-gaze image", launches, mov_must, mov_not + ("temporal_pair",))
+    if launches["mov_score"] != n_levels or not np.isfinite(q_mimg) \
+            or not np.all(s_mimg["Q_per_ch"][:, 1] == 0.0):
+        raise AssertionError(f"moving-gaze 4K image: JOD {q_mimg}, {launches}")
+    times, warm_s = warm_seconds(lambda: fv_mov.predict(
+        img_t, img_r, dim_order="HWC", fixation_point=gaze[N_FRAMES // 3][None]))
+    emit(dict(phase="moving_gaze_image", jod=q_mimg, warm_ms_median=1e3 * warm_s,
+              launches=launches))
+
+    n_h = HEAT_FRAMES
+    sub_t = np.ascontiguousarray(test_v[..., :n_h])
+    sub_r = np.ascontiguousarray(ref_v[..., :n_h])
+    gaze_h = sweeping_gaze(W, H, n_h)
+    fv_mh = fvt.fvvdp(display_name="standard_4k", foveated=True, heatmap="raw")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    (q_mh, s_mh), launches = counted(
+        lambda: fv_mh.predict(sub_t, sub_r, fixation_point=gaze_h, **video_kw))
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches("moving-gaze heatmap video", launches,
+                    ("gausspyr_reduce", "expand_contrast", "temporal_pair"),
+                    mov_not + ("mov_score",))
+    hm = s_mh["heatmap"]
+    q_mplain, _ = fv_mov.predict(sub_t, sub_r, fixation_point=gaze_h, **video_kw)
+    if hm.shape != (1, 1, n_h, H, W) or not np.all(np.isfinite(hm)) \
+            or not abs(q_mh - q_mplain) <= 1e-3:
+        raise AssertionError(f"moving-gaze heatmap: {hm.shape}, JOD {q_mh} (composed route) vs "
+                             f"{q_mplain} (mov_score)")
+    B_mh = fv_mh._pick_block_size(H, W, n_h, "composed")
+    times, warm_s = warm_seconds(
+        lambda: fv_mh.predict(sub_t, sub_r, fixation_point=gaze_h, **video_kw))
+    emit(dict(phase="moving_gaze_heatmap", frames=n_h, jod=q_mh, jod_kernel_route=q_mplain,
+              warm_s_median=warm_s, block_frames=B_mh, peak_bytes=peak,
+              resident_bytes_before=resident,
+              peak_bytes_per_px_frame=(peak - resident) / (B_mh * H * W),
+              heatmap_max=float(hm.max()),
+              launches=launches))
+    del hm, s_mh, fv_mh
+    fv_mov.load_state(fv_mov.parameters, fv_mov._luts)
+    del core_mov
 
     vr_t, vr_r = synth_clip(1600, 1440, 8)
     vr_kw = dict(dim_order="HWCF", frames_per_second=FPS, fixation_point=np.array([500, 600]))
@@ -594,11 +796,23 @@ def main():
                                             / np.maximum(np.abs(s_vr_cpu["Q_per_ch"]), 1e-6)))))
     if not abs(q_vr - q_vr_cpu) <= 1e-3:
         raise AssertionError(f"foveated 1440x1600 video: card {q_vr} vs CPU {q_vr_cpu}")
+    vr_kw["fixation_point"] = sweeping_gaze(1440, 1600, 8)
+    (q_vm, s_vm), launches = counted(lambda: fvt.fvvdp(
+        display_name="htc_vive_pro", foveated=True).predict(vr_t, vr_r, **vr_kw))
+    expect_launches("moving-gaze VR video", launches, mov_must + ("temporal_pair",), mov_not)
+    q_vm_cpu, s_vm_cpu = fvt.fvvdp(display_name="htc_vive_pro", foveated=True,
+                                   device="cpu").predict(vr_t, vr_r, **vr_kw)
+    emit(dict(phase="moving_gaze_vs_cpu", shape=[1600, 1440, 8], jod=q_vm, jod_cpu=q_vm_cpu,
+              max_rel_q_per_ch=float(np.max(np.abs(s_vm["Q_per_ch"] - s_vm_cpu["Q_per_ch"])
+                                            / np.maximum(np.abs(s_vm_cpu["Q_per_ch"]), 1e-6))),
+              launches=launches))
+    if not abs(q_vm - q_vm_cpu) <= 1e-3:
+        raise AssertionError(f"moving-gaze 1440x1600 video: card {q_vm} vs CPU {q_vm_cpu}")
     del vr_t, vr_r
 
     # 7. heatmaps
     heat_must = ("gausspyr_reduce", "expand_contrast")
-    heat_not = ("expand_score2", "band_score", "band_score2", "band_score2_fov")
+    heat_not = ("expand_score2", "band_score", "band_score2", "band_score2_fov", "mov_score")
     heat = {}
     for kind in ("threshold", "raw"):
         fv_h = fvt.fvvdp(display_name="standard_4k", heatmap=kind)
@@ -645,9 +859,6 @@ def main():
         raise AssertionError(f"raw 4K heatmap differs from the CPU's by {raw_err}")
     del heat, s_cpu, dmap, ctx, rgb
 
-    n_h = HEAT_FRAMES
-    sub_t = np.ascontiguousarray(test_v[..., :n_h])
-    sub_r = np.ascontiguousarray(ref_v[..., :n_h])
     fv_h = fvt.fvvdp(display_name="standard_4k", heatmap="supra-threshold",
                      device_heatmap=True, heatmap_dtype="uint8")
     torch.cuda.reset_peak_memory_stats()
@@ -670,7 +881,7 @@ def main():
 
     # 8. per-channel LUTs (the temporal channels' Y grids differ)
     pc_must = ("gausspyr_reduce", "expand_contrast", "band_score")
-    pc_not = ("expand_score2", "band_score2", "band_score2_fov")
+    pc_not = ("expand_score2", "band_score2", "band_score2_fov", "mov_score")
     (q_pci, _), launches = counted(lambda: fv_pc.predict(img_t, img_r, dim_order="HWC"))
     expect_launches("per-channel image", launches, pc_must, pc_not + ("temporal_pair",))
     torch.cuda.reset_peak_memory_stats()

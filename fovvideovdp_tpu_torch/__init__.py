@@ -3,8 +3,8 @@
 A port of ``fovvideovdp_tpu`` (JAX/Pallas on TPU), which stays the
 reference.  This package imports torch and numpy only.  It scores images
 and videos on a CUDA card through hand-written kernels (``ops/cuda``,
-sources in ``csrc/``): the default configuration, fixed-gaze foveation,
-heatmaps and per-channel CSF LUTs.  ``device="cpu"`` runs the kernels' plain
+sources in ``csrc/``): the default configuration, foveation with a fixed or
+a per-frame gaze, heatmaps and per-channel CSF LUTs.  ``device="cpu"`` runs the kernels' plain
 PyTorch versions instead.
 """
 from fovvideovdp_tpu_torch.display_model import (

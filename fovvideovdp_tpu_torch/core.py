@@ -1,20 +1,26 @@
 """Metric core: scoring of frame blocks.
 
-Counterpart of ``fovvideovdp_tpu/core.py:47-194,287-332,382-449,451-668,
+Counterpart of ``fovvideovdp_tpu/core.py:47-257,287-332,382-449,451-668,
 673-721,848-901`` for ``local_adapt`` "gpyr", Weber contrast and
 'min_mutual_masking_perc_norm2' masking, on LUTs with a uniform Y grid.
 Per block: temporal channels (CUDA kernel), Gaussian pyramid (reduce
-kernel), then one of four routes per level:
+kernel), then one of five routes per level:
 
 * default (no foveation, no heatmap, both LUTs on one Y grid): the fused
   expand + score kernel; contrast never reaches memory;
 * fixed-gaze foveation: expand_contrast kernel, then band_score2_fov with
   the per-pixel CSF tables of the fixation point;
+* moving-gaze foveation (a gaze per frame): expand_contrast, then mov_score,
+  which finds each pixel's eccentricity from the frame's gaze and
+  interpolates the band's LUT window itself; no tables are built;
 * per-channel LUTs (Y grids differ): expand_contrast, then band_score once
   per temporal channel;
-* heatmaps (and foveation on per-channel LUTs): expand_contrast, then the
+* heatmaps (and foveation on per-channel LUTs, and a moving gaze on LUTs
+  whose rho or eccentricity axis is not uniform): expand_contrast, then the
   per-pixel composition in tensor operations, which keeps the difference
   map D of every level for the reconstruction.
+
+The route is fixed when the core is built, never chosen on a failure.
 
 Layout: (F, C, H, W) with C = [T-sust, R-sust, T-trans, R-trans]; an image
 has C = 2.
@@ -31,6 +37,7 @@ from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 
@@ -78,19 +85,14 @@ class MetricCore:
             self.route = "banded"
         else:
             self.route = "fused"
+        # ... and the one it takes for a per-frame gaze: mov_score indexes
+        # the rho and eccentricity axes by arithmetic, so both must be
+        # uniform; other LUTs take the composition's cell search
+        self.moving_route = "banded" if self.route == "banded" and all(
+            csf_mod._axis_uniform(l, ax) for l in self.luts
+            for ax in ("rho_log", "ecc_sqrt")) else "composed"
 
-        p = params
-        sens_corr = 10.0 ** (p["sensitivity_correction"] / 20.0)
-        n_bands = plan.get_band_count()
         rho_band = plan.get_freqs()
-
-        def meta_for(lut, bb):
-            # the per-band gain folds into the sensitivity correction:
-            # everything between the contrast and |T - R|, min(|T|, |R|) is
-            # linear in it
-            return bs.score_meta(lut, p["mask_p"], p["mask_q_sust"], p["mask_q_trans"],
-                                 p["mask_c"], sens_corr * plan.band_gain(bb, n_bands),
-                                 p["beta"])
 
         # Not foveated: per (band, channel) the LUT collapses to a 1-D table
         # in luminance.  Foveated: static per-band maps of spatial frequency
@@ -129,13 +131,13 @@ class MetricCore:
                                                   self.luts[0], lbkg_max=peak_luminance)
                 self._score_tables.append(self._to_device(t2))
             self._score_lut = lut2
-            self._meta = [meta_for(lut2, bb) for bb in range(plan.height)]
+            self._meta = [self._score_meta(lut2, bb) for bb in range(plan.height)]
         elif not self.foveated:
             for bb in range(plan.height):
                 self._channel_tables.append(tuple(
                     self._to_device(t) for t in self._band_tables[bb]))
                 self._channel_meta.append(tuple(
-                    meta_for(self.luts[cc], bb) for cc in range(2)))
+                    self._score_meta(self.luts[cc], bb) for cc in range(2)))
 
         # Fixed gaze: the per-pixel tables get the same Y-knot trim (32 -> 19
         # planes on a 200 cd/m^2 display), which cuts both the kernel's table
@@ -144,13 +146,25 @@ class MetricCore:
         self._fov_lut = None
         self._fov_meta: List = []
         self._fov_table_cache: Dict = {}   # insertion-ordered: least recent first
+        self._mov_cache: Dict = {}         # band -> static data of mov_score
         if self.foveated and self._luts_share_Y:
             lo, hi, lut2 = csf_mod.trim_lut_bounds(self.luts[0], lbkg_max=peak_luminance)
             if lut2 is not self.luts[0]:
                 self._fov_trim = (lo, hi)
                 self._fov_lut = lut2
-            self._fov_meta = [meta_for(self._fov_lut or self.luts[0], bb)
+            self._fov_meta = [self._score_meta(self._fov_lut or self.luts[0], bb)
                               for bb in range(plan.height)]
+
+    def _score_meta(self, lut, bb: int) -> bs.ScoreMeta:
+        """Scalars of band ``bb``'s score on the Y grid of ``lut``.  The
+        per-band gain folds into the sensitivity correction: everything
+        between the contrast and |T - R|, min(|T|, |R|) is linear in it."""
+        p = self.params
+        sens_corr = 10.0 ** (p["sensitivity_correction"] / 20.0)
+        return bs.score_meta(lut, p["mask_p"], p["mask_q_sust"], p["mask_q_trans"],
+                             p["mask_c"],
+                             sens_corr * self.plan.band_gain(bb, self.plan.get_band_count()),
+                             p["beta"])
 
     def _to_device(self, table) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(table, dtype=np.float32),
@@ -214,22 +228,88 @@ class MetricCore:
         self._fov_table_cache.clear()
 
     # ------------------------------------------------------------------
+    # moving gaze
+    # ------------------------------------------------------------------
+    def _gaze_directions(self, gaze: torch.Tensor) -> torch.Tensor:
+        """gaze (F, 2) pixel coordinates -> view directions (F, 2) in
+        degrees, on the core's device."""
+        gaze = torch.as_tensor(gaze, dtype=torch.float32, device=self.device)
+        return self.geometry.pix2view_direction(
+            (self.plan.W, self.plan.H), gaze[:, 0] + 0.5, gaze[:, 1] + 0.5).T.contiguous()
+
+    def _moving_band_data(self, bb: int, windowed: bool = True) -> Dict:
+        """Static data of band ``bb`` for mov_score, as tensors on the
+        core's device: the LUTs cut to the rho knots the band's pixels reach
+        (``r_lo``..``r_hi``) and to the display's Y knots, laid out
+        (n_e, ny * nr) (``V2``, ``V2_5``); the pixels' rho coordinate in that
+        window (``t_r``); the kernel's scalars (``meta``).  Where the
+        omega = 5 LUT is the omega = 0 one plus a constant over the window,
+        ``V2_5`` is None and ``meta.off5`` holds the constant.
+        ``windowed=False`` keeps every knot of both axes, which is the size a
+        LUT without a usable window has."""
+        key = (bb, windowed)
+        if key in self._mov_cache:
+            return self._mov_cache[key]
+        lut = self.luts[0]
+        S0_all, S5_all = lut["S_log"], self.luts[1]["S_log"]     # [Y, rho, ecc]
+        n_y, n_rho, _ = S0_all.shape
+        # rho coordinate on the whole grid; its range is the band's window
+        q = torch.log2(torch.clamp(self._band_rho[bb], lut["rho"][0], lut["rho"][-1]))
+        u = csf_mod.grid_index_coord(q, lut["rho_log"], True)
+        if windowed:
+            r_lo = int(torch.floor(u).min().item())
+            r_hi = min(int(torch.floor(u).max().item()) + 1, n_rho - 1)
+            y_lo, y_hi = self._fov_trim if self._fov_trim is not None else (0, n_y - 1)
+            y_lut = self._fov_lut or lut
+        else:
+            r_lo, r_hi, y_lo, y_hi, y_lut = 0, n_rho - 1, 0, n_y - 1, lut
+        S0 = S0_all[y_lo:y_hi + 1, r_lo:r_hi + 1]
+        S5 = S5_all[y_lo:y_hi + 1, r_lo:r_hi + 1]
+        ny, nr, ne = S0.shape
+        diff = S5 - S0
+        # the mean, not one element: at the tolerance's edge it centres the
+        # residual (1e-5 log2 units at worst)
+        off5 = float(diff.mean().item()) \
+            if float((diff.max() - diff.min()).item()) <= 2e-5 else None
+
+        def lay_out(S):
+            return S.reshape(ny * nr, ne).T.contiguous()
+
+        data = {
+            "V2": lay_out(S0),
+            "V2_5": None if off5 is not None else lay_out(S5),
+            "t_r": torch.clamp(u - float(r_lo), 0.0, float(nr - 1)).contiguous(),
+            "r_lo": r_lo, "r_hi": r_hi,
+            "meta": ms.mov_meta(self._score_meta(y_lut, bb), lut, ny, nr, off5),
+        }
+        self._mov_cache[key] = data
+        return data
+
+    # ------------------------------------------------------------------
     # scoring of a block of temporal-response frames
     # ------------------------------------------------------------------
-    def score_frames(self, R: torch.Tensor, temp_ch: int, fov_tables=None
+    def score_frames(self, R: torch.Tensor, temp_ch: int, fov_tables=None, gaze=None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Score a block of temporal responses R (F, 2*temp_ch, H, W).
-        ``fov_tables``: the fixation point's tables from :meth:`fov_tables`
-        (required when foveated).  Returns (Q_per_ch (n_bands, 2, F),
-        heatmap (F, c, H, W) or None)."""
-        if self.foveated and fov_tables is None:
-            raise ValueError("a foveated core scores with the fixation point's "
-                             "fov_tables")
+        """Score a block of temporal responses R (F, 2*temp_ch, H, W).  A
+        foveated core takes either ``fov_tables``, the fixation point's
+        tables from :meth:`fov_tables`, or ``gaze``, (F, 2) pixel
+        coordinates of the gaze in each frame.  Returns (Q_per_ch
+        (n_bands, 2, F), heatmap (F, c, H, W) or None)."""
+        if self.foveated and (fov_tables is None) == (gaze is None):
+            raise ValueError("a foveated core scores with either the fixation "
+                             "point's fov_tables or a per-frame gaze")
         R = R.contiguous()
-        if self.route == "composed":
-            return self._score_frames_composed(R, temp_ch, fov_tables)
-        if self.route == "banded":
-            return self._score_frames_banded(R, temp_ch, fov_tables), None
+        gaze_dir = None
+        if self.foveated and gaze is not None:
+            if tuple(gaze.shape) != (R.shape[0], 2):
+                raise ValueError(f"gaze must be ({R.shape[0]}, 2), one row per frame "
+                                 f"of the block, got {tuple(gaze.shape)}")
+            gaze_dir = self._gaze_directions(gaze)
+        route = self.route if gaze_dir is None else self.moving_route
+        if route == "composed":
+            return self._score_frames_composed(R, temp_ch, fov_tables, gaze_dir)
+        if route == "banded":
+            return self._score_frames_banded(R, temp_ch, fov_tables, gaze_dir), None
         if temp_ch == 1:
             # image path: zero transient channels score exactly 0 through
             # the pipeline (D(0,0) = 0)
@@ -252,11 +332,12 @@ class MetricCore:
             Q_rows.append(self._q_from_sums(ssum2, bb))
         return torch.stack(Q_rows, dim=0)                         # (n_bands, 2, F)
 
-    def _score_frames_banded(self, R: torch.Tensor, temp_ch: int, fov_tables
-                             ) -> torch.Tensor:
+    def _score_frames_banded(self, R: torch.Tensor, temp_ch: int, fov_tables,
+                             gaze_dir=None) -> torch.Tensor:
         """Materialised contrast, one level at a time, scored by the band
-        kernels: per-pixel tables (fixed gaze) or one launch per channel
-        (per-channel LUTs)."""
+        kernels: per-pixel tables (fixed gaze), the LUT window with the
+        frame's gaze (moving gaze) or one launch per channel (per-channel
+        LUTs)."""
         Q_rows = []
         for bb, (band, L_bkg) in enumerate(self.plan.contrast_levels(R)):
             L = L_bkg[:, 0]
@@ -264,8 +345,13 @@ class MetricCore:
                 if temp_ch == 1:
                     # image path: zero transient contrast scores exactly 0
                     band = torch.cat([band, torch.zeros_like(band)], dim=1)
-                ssum = bs.band_score2_fov(band, L, fov_tables[bb][0], fov_tables[bb][1],
-                                          self._fov_meta[bb])     # (F, 2)
+                if gaze_dir is not None:
+                    d = self._moving_band_data(bb)
+                    ssum = ms.band_score2_mov(band, L, self._band_view_dir[bb], d["t_r"],
+                                              gaze_dir, d["V2"], d["V2_5"], d["meta"])
+                else:
+                    ssum = bs.band_score2_fov(band, L, fov_tables[bb][0], fov_tables[bb][1],
+                                              self._fov_meta[bb])     # (F, 2)
                 Q_rows.append(self._q_from_sums(ssum, bb))
                 continue
             Q_cc = []
@@ -280,13 +366,19 @@ class MetricCore:
             Q_rows.append(torch.stack(Q_cc, dim=0))
         return torch.stack(Q_rows, dim=0)
 
-    def _sensitivity(self, bb: int, cc: int, L: torch.Tensor, fov_tables) -> torch.Tensor:
+    def _sensitivity(self, bb: int, cc: int, L: torch.Tensor, fov_tables,
+                     ecc=None) -> torch.Tensor:
+        if ecc is not None:
+            # moving gaze: rho does not depend on the frame, ecc (F, h, w) does
+            return csf_mod.sensitivity_trilinear_block(self.luts[cc], self._band_rho[bb],
+                                                       L, ecc)
         if self.foveated:
             lut = self._fov_lut if self._fov_trim is not None else self.luts[cc]
             return csf_mod.sensitivity_pixel_tables(lut, fov_tables[bb][cc], L)
         return csf_mod.sensitivity_1d(self.luts[cc], self._band_tables[bb][cc], L)
 
-    def _score_frames_composed(self, R: torch.Tensor, temp_ch: int, fov_tables
+    def _score_frames_composed(self, R: torch.Tensor, temp_ch: int, fov_tables,
+                               gaze_dir=None
                                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Materialised contrast scored in tensor operations, keeping the
         per-pixel difference D of every level for the heatmap."""
@@ -302,10 +394,15 @@ class MetricCore:
             gain = plan.band_gain(bb, n_bands)
             band = band * gain
             L = L_bkg[:, 0]
+            ecc = None
+            if gaze_dir is not None:
+                vd = self._band_view_dir[bb]
+                ecc = torch.sqrt((vd[0] - gaze_dir[:, 0, None, None]) ** 2
+                                 + (vd[1] - gaze_dir[:, 1, None, None]) ** 2)
             Q_cc = []
             D_acc = None
             for cc in range(temp_ch):
-                S = self._sensitivity(bb, cc, L, fov_tables) * sens_corr
+                S = self._sensitivity(bb, cc, L, fov_tables, ecc) * sens_corr
                 q = (p["mask_q_sust"], p["mask_q_trans"])[cc]
                 D = mask_ops.apply_masking_model(band[:, 2 * cc], band[:, 2 * cc + 1],
                                                  1.0 / S, p["mask_p"], q, p["mask_c"])
@@ -340,21 +437,23 @@ class MetricCore:
             heat = heat.to(torch.float16)
         return Q_per_ch, heat
 
-    def score_image(self, T: torch.Tensor, Rf: torch.Tensor, fov_tables=None
+    def score_image(self, T: torch.Tensor, Rf: torch.Tensor, fov_tables=None, gaze=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(H, W) luminance pair -> (Q_per_ch (n_bands, 2, 1), heatmap)."""
+        """(H, W) luminance pair -> (Q_per_ch (n_bands, 2, 1), heatmap).
+        ``gaze``: (1, 2), in place of ``fov_tables``."""
         return self.score_frames(torch.stack([T, Rf], dim=0)[None], temp_ch=1,
-                                 fov_tables=fov_tables)
+                                 fov_tables=fov_tables, gaze=gaze)
 
     def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor,
-                   fov_tables=None):
+                   fov_tables=None, gaze=None):
         """One streaming step: temporal channels over the fl-1 carried frames
-        plus the new block (B, H, W), then scoring.  Returns (Q_per_ch
-        (n_bands, 2, B), heatmap or None, next carry_t, next carry_r)."""
+        plus the new block (B, H, W), then scoring (``gaze``: the block's
+        (B, 2) rows).  Returns (Q_per_ch (n_bands, 2, B), heatmap or None,
+        next carry_t, next carry_r)."""
         fl = taps.shape[1]
         B = new_t.shape[0]
         R = temporal_ops.temporal_channels_pair(carry_t, new_t, carry_r, new_r, taps)
-        Q, heat = self.score_frames(R, temp_ch=2, fov_tables=fov_tables)
+        Q, heat = self.score_frames(R, temp_ch=2, fov_tables=fov_tables, gaze=gaze)
         if fl - 1 <= B:
             c_t, c_r = new_t[B - (fl - 1):], new_r[B - (fl - 1):]
         else:

@@ -1,7 +1,8 @@
 """Contrast sensitivity LUTs: loading, the host-side reductions of the
-non-foveated path and the per-pixel reductions of the fixed-gaze path.
+non-foveated path, the per-pixel reductions of the fixed-gaze path and the
+per-frame trilinear lookup of the moving-gaze path.
 
-Counterpart of ``fovvideovdp_tpu/csf.py:35-235,292-386``.  A LUT is a dict
+Counterpart of ``fovvideovdp_tpu/csf.py:35-386,444-500``.  A LUT is a dict
 of float32 tensors (``LUT_FIELDS``) plus ``"_uniform"``, the per-axis flags
 saying whether the grid is uniform in its transformed space.  The 1-D
 reductions run once per metric core, on the host, in numpy, with the same
@@ -174,9 +175,7 @@ def _uniform_weights(q: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """2-point interpolation weights on a uniform grid as a dense row (n,)
     per query."""
     n = grid.shape[0]
-    u = grid_index_coord(q, grid, True)
-    i0 = torch.floor(u).to(torch.int64)
-    return _two_point_rows(i0, torch.clamp(i0 + 1, max=n - 1), u - i0.to(u.dtype), n)
+    return _two_point_rows(*two_knots(grid_index_coord(q, grid, True), n), n)
 
 
 def _monotone_cell(q: torch.Tensor, grid: torch.Tensor):
@@ -211,6 +210,16 @@ def grid_index_coord(q: torch.Tensor, grid: torch.Tensor, uniform: bool) -> torc
         return torch.clamp((q - grid[0]) / dx, 0.0, float(n - 1))
     i_lo, _, f = _monotone_cell(q, grid)
     return i_lo.to(q.dtype) + f
+
+
+def two_knots(u: torch.Tensor, n: int):
+    """Knot pair and fraction of a piecewise-linear lookup at the index
+    coordinate ``u`` (already clamped to [0, n-1]): ``(i0, i1, f)`` with
+    ``i1 = min(i0 + 1, n-1)``, so the top knot carries weight 0 on itself.
+    A NaN coordinate indexes knot 0 and keeps ``f`` NaN: a non-finite input
+    gives a non-finite result, never an index out of range."""
+    i0 = torch.clamp(torch.floor(torch.nan_to_num(u, nan=0.0)).to(torch.int64), 0, n - 1)
+    return i0, torch.clamp(i0 + 1, max=n - 1), u - i0.to(u.dtype)
 
 
 def _pixel_chunk(n: int, device: torch.device) -> int:
@@ -276,9 +285,7 @@ def sensitivity_pixel_tables(lut: Dict, tables: torch.Tensor,
     lead = u.dim() == 3
     if not lead:
         u = u[None]
-    i0 = torch.clamp(torch.floor(u).to(torch.int64), max=n - 1)
-    f = u - i0.to(u.dtype)
-    i1 = torch.clamp(i0 + 1, max=n - 1)
+    i0, i1, f = two_knots(u, n)
     s_log = torch.gather(tables, 0, i0) * (1.0 - f) + torch.gather(tables, 0, i1) * f
     S = torch.exp2(s_log)
     return S if lead else S[0]
@@ -289,7 +296,108 @@ def sensitivity_1d(lut: Dict, table_1d, L_bkg: torch.Tensor) -> torch.Tensor:
     table = torch.as_tensor(table_1d, dtype=torch.float32, device=L_bkg.device)
     n = table.shape[0]
     u = _luminance_coord(lut, L_bkg)
-    i0 = torch.clamp(torch.floor(u).to(torch.int64), max=n - 1)
-    f = u - i0.to(u.dtype)
-    i1 = torch.clamp(i0 + 1, max=n - 1)
+    i0, i1, f = two_knots(u, n)
     return torch.exp2(table[i0] * (1.0 - f) + table[i1] * f)
+
+
+# ---------------------------------------------------------------------------
+# Moving gaze: the rho window of a band and the per-frame trilinear lookup
+# ---------------------------------------------------------------------------
+
+def rho_window_weights(lut: Dict, rho_map):
+    """The rho-axis knots a band can reach, and its pixels' weights on them.
+
+    A band's per-pixel spatial frequencies rho_band * res_mag(pixel) span
+    only a few knots of the rho grid, so the moving-gaze scorer works on a
+    window of the LUT.  Returns ``(r_lo, r_hi, w_r)``: ``w_r``
+    (h, w, r_hi-r_lo+1) holds the reference 2-point interpolation weights
+    restricted to the window; every knot outside it has weight exactly 0.
+    Host numpy in float32 throughout, as the JAX package computes it."""
+    grid = np.asarray(_np(lut["rho_log"]), np.float32)
+    n = grid.shape[0]
+    rho = _np(lut["rho"])
+    q = np.log2(np.clip(np.asarray(_np(rho_map), np.float32),
+                        np.float32(rho[0]), np.float32(rho[-1])))
+    shape = q.shape
+    q = q.reshape(-1)
+    if _axis_uniform(lut, "rho_log"):
+        dx = np.float32((grid[-1] - grid[0]) / np.float32(n - 1))
+        u = np.clip((q - grid[0]) / dx, np.float32(0.0), np.float32(n - 1))
+        i_lo = np.floor(u).astype(np.int64)
+        f = (u - i_lo).astype(np.float32)
+        i_hi = np.minimum(i_lo + 1, n - 1)
+    else:
+        i_hi = np.minimum(np.sum(grid[None, :] < q[:, None], axis=-1), n - 1)
+        i_lo = np.clip(i_hi - 1, 0, n - 1)
+        x_lo, x_hi = grid[i_lo], grid[i_hi]
+        f = ((q - x_lo) / (x_hi - x_lo + np.float32(1e-6))).astype(np.float32)
+        f = np.where((i_hi == i_lo) | (f < 0.0), 0.0, f).astype(np.float32)
+    r_lo = int(i_lo.min())
+    r_hi = int(i_hi.max())
+    n_r = r_hi - r_lo + 1
+    w_r = np.zeros((q.shape[0], n_r), np.float32)
+    np.put_along_axis(w_r, (i_lo - r_lo)[:, None], (1.0 - f)[:, None], 1)
+    # i_hi == i_lo at the clamped top end: accumulate, do not overwrite
+    hi_w = np.take_along_axis(w_r, (i_hi - r_lo)[:, None], 1) \
+        + np.where(i_hi == i_lo, 0.0, f)[:, None]
+    np.put_along_axis(w_r, (i_hi - r_lo)[:, None], hi_w, 1)
+    return r_lo, r_hi, w_r.reshape(shape + (n_r,))
+
+
+def ecc_weights(lut: Dict, ecc: torch.Tensor) -> torch.Tensor:
+    """Per-pixel 2-point interpolation weights along the ecc axis, a dense
+    row (n_e,) per query, with the reference clamp semantics."""
+    ecc_q = torch.sqrt(torch.clamp(ecc, lut["ecc"][0], lut["ecc"][-1]))
+    return _grid_weights(ecc_q, lut["ecc_sqrt"], _axis_uniform(lut, "ecc_sqrt"))
+
+
+def _cell(q: torch.Tensor, grid: torch.Tensor, uniform: bool):
+    """Knot pair and fraction of ``q`` on ``grid``: index arithmetic on a
+    uniform grid, the reference cell search on a monotone one."""
+    if uniform:
+        return two_knots(grid_index_coord(q, grid, True), grid.shape[0])
+    return _monotone_cell(q, grid)
+
+
+# pixel-frames per pass of sensitivity_trilinear_block (about one 4K frame);
+# a pass keeps some twenty temporaries of that many elements
+_TRILINEAR_CHUNK = 1 << 23
+
+
+def sensitivity_trilinear_block(lut: Dict, rho_map: torch.Tensor, L_bkg: torch.Tensor,
+                                ecc: torch.Tensor) -> torch.Tensor:
+    """Trilinear S(rho, L_bkg, ecc) for a block of frames sharing a static
+    per-pixel rho map: the moving-gaze CSF of the composed route, and the
+    oracle of the mov_score kernel.
+
+    ``rho_map`` (h, w) does not depend on the frame; ``L_bkg`` (F, h, w);
+    ``ecc`` (F, h, w) or (h, w).  Returns S (F, h, w).  The two neighbouring
+    knots of each axis are gathered per pixel (8 corners); the JAX package
+    contracts dense weight rows over all knots instead, which gives the
+    same interpolant up to rounding."""
+    V = lut["S_log"]                       # [Y, rho, ecc]
+    n_y, n_r, n_e = V.shape
+    flat = V.reshape(-1)
+    F = L_bkg.shape[0]
+    shape = tuple(L_bkg.shape[1:])
+    rho = torch.broadcast_to(torch.as_tensor(rho_map, dtype=torch.float32,
+                                             device=V.device), shape)
+    ecc = torch.broadcast_to(ecc, (F,) + shape)
+    u_y, u_r, u_e = (_axis_uniform(lut, ax) for ax in ("Y_log", "rho_log", "ecc_sqrt"))
+
+    rho_q = torch.log2(torch.clamp(rho, lut["rho"][0], lut["rho"][-1]))
+    r0, r1, fr = _cell(rho_q, lut["rho_log"], u_r)          # once per block
+    s_log = torch.empty((F,) + shape, dtype=torch.float32, device=V.device)
+    step = max(1, _TRILINEAR_CHUNK // max(1, rho.numel()))
+    for a in range(0, F, step):
+        Y_q = torch.log2(torch.clamp(L_bkg[a:a + step], lut["Y"][0], lut["Y"][-1]))
+        ecc_q = torch.sqrt(torch.clamp(ecc[a:a + step], lut["ecc"][0], lut["ecc"][-1]))
+        y0, y1, fy = _cell(Y_q, lut["Y_log"], u_y)
+        e0, e1, fe = _cell(ecc_q, lut["ecc_sqrt"], u_e)
+        acc = torch.zeros_like(Y_q)
+        for iy, wy in ((y0, 1.0 - fy), (y1, fy)):
+            for ir, wr in ((r0, 1.0 - fr), (r1, fr)):
+                row = (iy * n_r + ir) * n_e
+                acc += wy * wr * (flat[row + e0] * (1.0 - fe) + flat[row + e1] * fe)
+        s_log[a:a + step] = acc
+    return torch.exp2(s_log)

@@ -80,14 +80,15 @@ expand_score_kernel(const float* __restrict__ fine, const float* __restrict__ co
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch)
             e[ch] = fvvdp::expand_tile_horizontal(s_v[ch][lr], lc);
-        const float lbkg = fmaxf(e[bkg_ch], 0.1f);
+        const float lbkg = fvvdp::clamp_min(e[bkg_ch], 0.1f);
         float con[4];
         const float* fp = fbase + (size_t)gy * W + gx;
 #pragma unroll
-        for (int ch = 0; ch < 4; ++ch) con[ch] = fminf((fp[ch * plane] - e[ch]) / lbkg, 1000.0f);
+        for (int ch = 0; ch < 4; ++ch)
+            con[ch] = fvvdp::clamp_max((fp[ch * plane] - e[ch]) / lbkg, 1000.0f);
 
-        float u = (log2f(fminf(fmaxf(lbkg, sp.Ymin), sp.Ymax)) - sp.y0) / sp.dy;
-        u = fminf(fmaxf(u, 0.0f), static_cast<float>(n_grid - 1));
+        float u = (log2f(fvvdp::clampf(lbkg, sp.Ymin, sp.Ymax)) - sp.y0) / sp.dy;
+        u = fvvdp::clampf(u, 0.0f, static_cast<float>(n_grid - 1));
         const float ls_s = fvvdp::table_interp(s_tab[0], n_grid, u) + sp.lcorr;
         const float ls_t = fvvdp::table_interp(s_tab[1], n_grid, u) + sp.lcorr;
         acc_s += fvvdp::d_beta_log2(con[0], con[1], ls_s, sp.p, sp.q_s, sp.lc10, sp.beta);

@@ -29,28 +29,20 @@
 // not), then walks its frames.  The tables are so read from memory once per
 // block of frames, not once per frame.  Where a level has too few pixel
 // blocks to fill the card, the frames are split over grid.y instead (the
-// tables of such a level are small).  Per frame each warp reduces its sums
-// with shuffles into shared memory; after every 32 frames the block adds
-// the 8 warp sums in a fixed order and writes its partials (F, n_blocks, 2).
-// sum_partials_kernel (partials.cuh) adds them per frame.  No atomics.
-// Pixels past the end of the plane are masked; the TPU kernels pad with
-// T = R = 0 instead.
+// tables of such a level are small).  The per-frame sums go through the two
+// passes of partials.cuh.  No atomics.  Pixels past the end of the plane are
+// masked; the TPU kernels pad with T = R = 0 instead.  A NaN in L_bkg or the
+// contrast gives a NaN sum for that frame (score_math.cuh).
 #include <cuda_runtime.h>
-
-#include <algorithm>
 
 #include "partials.cuh"
 #include "score_math.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kFrameChunk = 32;
+using fvvdp::kFrameChunk;
+constexpr int kThreads = fvvdp::kPixelThreads;
 constexpr int kMaxGrid = 64;
-// pixel blocks below which the frames are split over grid.y (two blocks
-// per SM of the 132)
-constexpr int kFillBlocks = 264;
 
 struct BandArgs {
     const float* ch[4];   // T-sust, R-sust, T-trans, R-trans planes of frame 0
@@ -66,10 +58,9 @@ struct BandArgs {
 template <bool kPerPixel, int kCh>
 __global__ void __launch_bounds__(kThreads) band_score_kernel(BandArgs a) {
     extern __shared__ float s_tab[];   // 1-D: [kCh][n]; per pixel: [kCh][n][kThreads]
-    __shared__ float s_part[kFrameChunk][kWarps][2];
+    __shared__ fvvdp::FrameSums s_part;
 
     const int tid = threadIdx.x;
-    const int warp = tid / 32, lane = tid % 32;
     const int n = a.n_grid;
     const long long pix = (long long)blockIdx.x * kThreads + tid;
     const bool live = pix < a.hw;
@@ -97,8 +88,8 @@ __global__ void __launch_bounds__(kThreads) band_score_kernel(BandArgs a) {
             float acc[2] = {0.0f, 0.0f};
             if (live) {
                 const float L = a.L[f * a.L_fs + pix];
-                float u = (log2f(fminf(fmaxf(L, a.Ymin), a.Ymax)) - a.y0) / a.dy;
-                u = fminf(fmaxf(u, 0.0f), static_cast<float>(n - 1));
+                float u = (log2f(fvvdp::clampf(L, a.Ymin, a.Ymax)) - a.y0) / a.dy;
+                u = fvvdp::clampf(u, 0.0f, static_cast<float>(n - 1));
                 int i0, i1;
                 float fr;
                 fvvdp::table_knots(u, n, &i0, &i1, &fr);
@@ -112,38 +103,19 @@ __global__ void __launch_bounds__(kThreads) band_score_kernel(BandArgs a) {
                     acc[c] = fvvdp::d_beta_log2(T, R, ls, a.p, a.q[c], a.lc10, a.beta);
                 }
             }
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) {
-                acc[0] += __shfl_down_sync(0xffffffffu, acc[0], off);
-                acc[1] += __shfl_down_sync(0xffffffffu, acc[1], off);
-            }
-            if (lane == 0) {
-                s_part[j][warp][0] = acc[0];
-                s_part[j][warp][1] = acc[1];
-            }
+            fvvdp::frame_warp_sums(acc[0], acc[1], s_part, j);
         }
-        __syncthreads();
-        if (tid < 2 * nf) {
-            const int j = tid >> 1, c = tid & 1;
-            float s = 0.0f;
-            for (int w = 0; w < kWarps; ++w) s += s_part[j][w][c];
-            a.partials[((size_t)(f0 + j) * gridDim.x + blockIdx.x) * 2 + c] = s;
-        }
-        __syncthreads();
+        fvvdp::flush_frame_chunk(s_part, nf, f0, a.partials);
     }
 }
-
-int n_blocks_of(int hw) { return (hw + kThreads - 1) / kThreads; }
 
 template <bool kPerPixel, int kCh>
 int launch(BandArgs a, float* out, cudaStream_t stream) {
     if (a.n_grid < 1 || a.n_grid > kMaxGrid || a.F < 1 || a.hw < 1)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int n_blocks = n_blocks_of(a.hw);
-    int groups = 1;
-    if (n_blocks < kFillBlocks) groups = std::min(a.F, (kFillBlocks + n_blocks - 1) / n_blocks);
-    a.frames_per_group = (a.F + groups - 1) / groups;
-    groups = (a.F + a.frames_per_group - 1) / a.frames_per_group;
+    const int n_blocks = fvvdp::pixel_blocks_of(a.hw);
+    int groups;
+    fvvdp::frame_groups(n_blocks, a.F, &a.frames_per_group, &groups);
     if (groups > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = sizeof(float) * kCh * a.n_grid * (kPerPixel ? kThreads : 1);
     auto kernel = band_score_kernel<kPerPixel, kCh>;
@@ -164,7 +136,7 @@ int launch(BandArgs a, float* out, cudaStream_t stream) {
 }  // namespace
 
 // pixel blocks of a plane of hw pixels (the partials' middle dimension)
-extern "C" int fvvdp_band_score_n_blocks(int hw) { return n_blocks_of(hw); }
+extern "C" int fvvdp_band_score_n_blocks(int hw) { return fvvdp::pixel_blocks_of(hw); }
 
 // One channel.  T, R, L: planes of hw floats per frame at the given frame
 // strides; table (n_grid,); partials scratch (F, n_blocks, 2); out (F, 2),

@@ -71,12 +71,13 @@ expand_contrast_kernel(const float* __restrict__ fine, const float* __restrict__
 #pragma unroll
         for (int ch = 1; ch < C; ++ch)
             if (ch == bkg_ch) eb = e[ch];
-        const float lbkg = fmaxf(eb, 0.1f);
+        const float lbkg = fvvdp::clamp_min(eb, 0.1f);
         const size_t off = (size_t)gy * W + gx;
         lbase[off] = lbkg;
 #pragma unroll
         for (int ch = 0; ch < C; ++ch)
-            cbase[ch * plane + off] = fminf((fbase[ch * plane + off] - e[ch]) / lbkg, 1000.0f);
+            cbase[ch * plane + off] =
+                fvvdp::clamp_max((fbase[ch * plane + off] - e[ch]) / lbkg, 1000.0f);
     }
 }
 

@@ -10,6 +10,12 @@
 //
 // No fast-math: log2f(0) = -inf and exp2f(-inf) = 0 carry D(0,0) = 0, which
 // the zero-filled transient channels of the image path rely on.
+//
+// Non-finite input: a NaN in, a NaN out.  Every clamp of the kernels is one
+// of the comparison forms below, which keep a NaN operand as torch.clamp and
+// jnp.clip do (and as the TPU kernels do); fminf / fmaxf would drop it and
+// score a broken pixel as a plausible number.  For finite operands the two
+// forms give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +26,13 @@ namespace fvvdp {
 // a = 0.4), as the Python side's K5.
 __device__ __forceinline__ float k5(int k) {
     return k == 2 ? 0.4f : ((k == 1 || k == 3) ? 0.25f : 0.05f);
+}
+
+// x clamped from below / from above / to [lo, hi]; NaN stays NaN.
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+    return clamp_max(clamp_min(x, lo), hi);
 }
 
 // log2(1e4): the masking model clamps D at 1e4.
@@ -49,12 +62,13 @@ __device__ __forceinline__ void table_knots(float u, int n, int* i0, int* i1, fl
 // the correction):
 //   log2 D = p*(log2|T-R| + ls) - log2(1 + 2^(q*(log2 min(|T|,|R|) + ls + lc10)))
 //   D^beta = 2^(beta * min(log2 D, log2 1e4))
+// A NaN contrast makes |T-R| NaN, which the last clamp keeps.
 __device__ __forceinline__ float d_beta_log2(float T, float R, float ls, float p,
                                              float q, float lc10, float beta) {
     const float la = log2f(fabsf(T - R)) + ls;
     const float lm = log2f(fminf(fabsf(T), fabsf(R))) + (ls + lc10);
     const float ld = p * la - log2f(1.0f + exp2f(q * lm));
-    return exp2f(beta * fminf(ld, kLog2ClampD));
+    return exp2f(beta * clamp_max(ld, kLog2ClampD));
 }
 
 }  // namespace fvvdp

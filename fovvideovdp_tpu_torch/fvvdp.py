@@ -2,9 +2,9 @@
 
 Counterpart of ``fovvideovdp_tpu/fvvdp.py:68-213`` (constructor, config,
 display, cores), ``predict``, ``predict_video_source`` (image branch, the
-streaming loop, fixed-gaze foveation, heatmaps on the host or the device)
-and ``do_pooling_and_jods``.  The default device is the CUDA card;
-``device="cpu"`` runs every kernel's plain version instead.
+streaming loop, foveation with a fixed or a per-frame gaze, heatmaps on the
+host or the device) and ``do_pooling_and_jods``.  The default device is the
+CUDA card; ``device="cpu"`` runs every kernel's plain version instead.
 
 Frames are scored in blocks: each block's temporal window is the fl-1
 carried frames plus the new block, and ``Q_per_ch`` stays on the device
@@ -37,9 +37,14 @@ from fovvideovdp_tpu_torch.video_source import fvvdp_video_source_array
 # one level's materialised contrast and L_bkg (20 B at level 0); "composed"
 # (heatmaps) adds the temporaries of the per-pixel composition, every
 # level's difference map, the reconstruction and the rendered frames.
+# "moving" (a gaze per frame through mov_score) holds what "banded" holds,
+# without resident tables; a gaze per frame on the composed route adds one
+# level's eccentricity maps and frame-sized temporaries to "composed", which
+# its figure covers (measured 116.4 B).
 # chip_smoke.py measures the peaks on the card at 4K (PERF.md, where the
-# time goes): 38.1, 64.8 and 118.9 B; the figures here are those rounded up.
-_BLOCK_BYTES_PER_PX_FRAME = {"fused": 40, "banded": 68, "composed": 128}
+# time goes): 38.1, 64.8 and 118.9 B, and for "moving" 59.8 B above what was
+# on the card before the call; the figures here are those rounded up.
+_BLOCK_BYTES_PER_PX_FRAME = {"fused": 40, "banded": 68, "composed": 128, "moving": 68}
 # share of the free device memory a block may take
 _BLOCK_MEM_SHARE = 0.5
 # Past this, a longer block only holds more memory: the fl-1 carried frames
@@ -74,7 +79,8 @@ def _resolve_device(device) -> torch.device:
 
 class fvvdp:
     """Full-reference video/image quality metric (JOD units): foveated with
-    a fixed fixation point or not, with or without a heatmap."""
+    a fixed fixation point or a gaze per frame, or not foveated; with or
+    without a heatmap."""
 
     def __init__(self, display_name="standard_4k", display_photometry=None,
                  display_geometry=None, color_space="sRGB", foveated=False,
@@ -249,8 +255,9 @@ class fvvdp:
     def predict_video_source(self, vid_source, fixation_point=None, mesh=None,
                              checkpoint_path=None):
         """Score a video source.  ``fixation_point``: one (x, y) point in
-        pixels, the centre of the frame by default; it matters only when the
-        metric is foveated."""
+        pixels (the centre of the frame by default), or an (N, 2) array with
+        one row per frame for a moving gaze; it matters only when the metric
+        is foveated."""
         if mesh is not None:
             raise _unsupported("mesh", "queue 1 item 14")
         if checkpoint_path is not None:
@@ -258,17 +265,31 @@ class fvvdp:
         height, width, N_frames = vid_source.get_video_size()
 
         fov_tables = None
+        gaze = None                  # (N_frames, 2) tensor: the moving route
         core = self._get_core(width, height)
+        route = core.route
         if self.foveated:
             if fixation_point is None:
                 fixation_point = np.array([width // 2, height // 2])
             fixation_point = np.asarray(fixation_point, dtype=np.float32)
-            if fixation_point.shape != (2,):
-                raise _unsupported(
-                    f"a per-frame fixation_point of shape {fixation_point.shape} "
-                    "(a moving gaze)", "queue 1 item 9")
-            fov_tables = core.fov_tables((float(fixation_point[0]),
-                                          float(fixation_point[1])))
+            if fixation_point.ndim == 2 and fixation_point.shape[1] == 2:
+                if fixation_point.shape[0] < N_frames:
+                    raise RuntimeError(
+                        f"fixation_point has {fixation_point.shape[0]} per-frame "
+                        f"rows but the video has {N_frames} frames; pass one (x, y) "
+                        f"point or at least one row per frame")
+                # this route reads no fixed-gaze tables; an earlier call may
+                # have left GB of them on the card
+                core.drop_fov_tables()
+                gaze = torch.as_tensor(fixation_point[:N_frames], device=self.device)
+                route = "moving" if core.moving_route == "banded" else "composed"
+            elif fixation_point.shape == (2,):
+                fov_tables = core.fov_tables((float(fixation_point[0]),
+                                              float(fixation_point[1])))
+            else:
+                raise ValueError(
+                    f"fixation_point must be one (x, y) point or an (N, 2) array of "
+                    f"per-frame points, got shape {fixation_point.shape}")
         plan = core.plan
         if self.do_heatmap and self.device_heatmap:
             self._check_device_heatmap_budget(N_frames, height, width)
@@ -280,7 +301,7 @@ class fvvdp:
 
         if N_frames == 1:
             t, r = vid_source.get_luminance_block(0, 1)
-            Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables)
+            Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
             keep(heat)
         else:
             fps = vid_source.get_frames_per_second()
@@ -291,7 +312,7 @@ class fvvdp:
             pad_idx = temporal_ops.padding_indices(N_frames, fl, self.temp_padding)
             stream_idx = pad_idx[fl - 1:]  # frame feeding each output frame
 
-            B = self._pick_block_size(height, width, N_frames, core.route)
+            B = self._pick_block_size(height, width, N_frames, route)
             Q_per_ch = torch.empty((plan.height, 2, N_frames), dtype=torch.float32,
                                    device=self.device)
             carry_t, carry_r = vid_source.get_indexed_luminance_block(pad_idx[:fl - 1])
@@ -304,7 +325,8 @@ class fvvdp:
                 else:  # circular/pingpong padding reorders the first frames
                     new_t, new_r = vid_source.get_indexed_luminance_block(blk)
                 Q_blk, heat, carry_t, carry_r = core.video_step(
-                    carry_t, carry_r, new_t, new_r, taps, fov_tables)
+                    carry_t, carry_r, new_t, new_r, taps, fov_tables,
+                    None if gaze is None else gaze[pos:pos + b])
                 Q_per_ch[:, :, pos:pos + b] = Q_blk
                 keep(heat)
                 pos += b

@@ -30,7 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
-           "band_score", "band_score2", "band_score2_fov")
+           "band_score", "band_score2", "band_score2_fov", "mov_score")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # y0, dy, Ymin, Ymax, p, then the masking exponents and log2 scalars up to beta
@@ -65,6 +65,13 @@ _SIGNATURES = {
     # band, L, tabs_s, tabs_t, partials, out, F, hw, fs_L, n_grid, scalars, stream
     "band_score2_fov": ("band_score", "fvvdp_band_score2_fov",
                         [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, *_SCORE2, _P]),
+    # n_e, ny, nr, two tables -> 1 if the LUT window is staged in shared memory
+    "mov_score_lut_in_shared": ("mov_score", "fvvdp_mov_score_lut_in_shared",
+                                [_I, _I, _I, _I]),
+    # band, L, vd, t_r, gaze, V2s, V2t, partials, out, F, hw, fs_L, n_e, ny, nr,
+    # es0, des, emin, emax, off5, scalars, stream
+    "mov_score": ("mov_score", "fvvdp_mov_score",
+                  [_P] * 9 + [_I, _I, _L, _I, _I, _I] + [_F] * 5 + [*_SCORE2, _P]),
 }
 
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}

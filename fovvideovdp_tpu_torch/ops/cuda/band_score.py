@@ -16,7 +16,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fovvideovdp_tpu_torch.csf import _np
+from fovvideovdp_tpu_torch.csf import _np, two_knots
 from fovvideovdp_tpu_torch.ops.cuda import _lib
 
 
@@ -67,9 +67,7 @@ def band_score_plain(T, R, L, table, m: ScoreMeta, q: float) -> torch.Tensor:
     """Per-frame sum over pixels of D^beta for one channel (direct form)."""
     n = table.shape[0]
     u = _table_coord(L, m, n)
-    i0 = torch.floor(u).to(torch.int64)
-    f = u - i0.to(u.dtype)
-    i1 = torch.clamp(i0 + 1, max=n - 1)
+    i0, i1, f = two_knots(u, n)
     S_log = table[i0] * (1.0 - f) + table[i1] * f
     return _d_beta_sum(T, R, torch.exp2(S_log) * m.corr, m, q)
 
@@ -133,6 +131,7 @@ def _scalars(m: ScoreMeta, *q):
 
 
 def _scratch(F: int, hw: int, device):
+    """Partials (F, pixel blocks, 2) and output (F, 2) of a pixel scorer."""
     n_blocks = _lib.kernel_fn("band_score_n_blocks")(hw)
     return (torch.empty((F, n_blocks, 2), dtype=torch.float32, device=device),
             torch.empty((F, 2), dtype=torch.float32, device=device))

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fovvideovdp_tpu_torch.csf import two_knots
+
 # masking clamp: D is clipped at 1e4
 L4 = float(np.log2(1e4))
 
@@ -14,10 +16,7 @@ def table_interp(table: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Piecewise-linear lookup of a uniform-grid table at coordinate u
     (clamped to [0, n-1]): t[i0] * (1 - f) + t[i1] * f."""
     n = table.shape[-1]
-    u = torch.clamp(u, 0.0, float(n - 1))
-    i0 = torch.floor(u).to(torch.int64)
-    f = u - i0.to(u.dtype)
-    i1 = torch.clamp(i0 + 1, max=n - 1)
+    i0, i1, f = two_knots(torch.clamp(u, 0.0, float(n - 1)), n)
     return table[i0] * (1.0 - f) + table[i1] * f
 
 

@@ -1,6 +1,7 @@
-"""Fixed-gaze foveation of fovvideovdp_tpu_torch end to end on the CPU:
-``fvvdp(foveated=True).predict`` against the reference golden and against
-the JAX package's ``predict`` on the same input.
+"""Foveation of fovvideovdp_tpu_torch end to end on the CPU, with a fixed
+fixation point and with a gaze per frame: ``fvvdp(foveated=True).predict``
+against the reference goldens and against the JAX package's ``predict`` on
+the same input.
 
 Bars: the repo's own (tests/test_metric_e2e.py:13-17): |dJOD| <= 0.01,
 Q_per_ch rtol 2e-3 / atol 2e-4.  The JAX package runs its jnp composition
@@ -49,9 +50,24 @@ def test_foveated_image_matches_golden(goldens):
     assert "foveated" in fv.get_info_string() and "non-foveated" not in fv.get_info_string()
 
 
+def test_foveated_video_matches_golden_with_its_moving_gaze(goldens):
+    """The reference's own score of a 6-frame video whose gaze moves from
+    (0, 0) to (35, 39): the counterpart of
+    tests/test_metric_e2e.py::test_foveated_video."""
+    g = goldens("foveated_video")
+    fv = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    assert g["gaze"].shape == (6, 2)
+    Q, stats = fv.predict(g["test"], g["ref"], dim_order="HWCF", frames_per_second=30,
+                          fixation_point=g["gaze"])
+    assert abs(Q - float(g["Q_jod"])) <= 0.01
+    np.testing.assert_allclose(stats["Q_per_ch"], g["Q_per_ch"], **BAR)
+    assert fv._get_core(36, 40).moving_route == "banded"
+    assert not fv._get_core(36, 40)._fov_table_cache       # no tables were built
+
+
 def test_foveated_video_golden_with_its_first_gaze_held(goldens):
-    """The golden's gaze moves (a later slice); held at its first point the
-    port must agree with the JAX package on the same fixed point."""
+    """Held at the golden's first gaze point the port must agree with the
+    JAX package on the same fixed point."""
     g = goldens("foveated_video")
     gaze = np.asarray(g["gaze"][0], np.float32)
     call = dict(dim_order="HWCF", frames_per_second=30, fixation_point=gaze)
@@ -108,10 +124,20 @@ def test_fixation_point_matters_and_defaults_to_the_centre():
 
 @pytest.mark.parametrize("shape", [(6, 2), (1, 2), (3,)])
 def test_per_frame_fixation_point_raises(shape):
+    """A row per frame scores (and equals the same point held); a trajectory
+    shorter than the video and a shape that is neither (2,) nor (N, 2) raise."""
     test, ref, call = _content("video")
     pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pm.predict(test, ref, fixation_point=np.full(shape, 10.0), **call)
+    if shape == (6, 2):
+        q_moving, _ = pm.predict(test, ref, fixation_point=np.full(shape, 10.0), **call)
+        q_fixed, _ = pm.predict(test, ref, fixation_point=np.full((2,), 10.0), **call)
+        assert np.isfinite(q_moving) and abs(q_moving - q_fixed) <= 1e-3
+    elif shape == (1, 2):
+        with pytest.raises(RuntimeError, match="1 per-frame rows but the video has 6"):
+            pm.predict(test, ref, fixation_point=np.full(shape, 10.0), **call)
+    else:
+        with pytest.raises(ValueError, match="fixation_point"):
+            pm.predict(test, ref, fixation_point=np.full(shape, 10.0), **call)
     # a metric that is not foveated ignores the point, whatever its shape
     q, _ = fv_port.fvvdp(display_name="htc_vive_pro", device="cpu").predict(
         test, ref, fixation_point=np.full(shape, 10.0), **call)
@@ -165,3 +191,134 @@ def test_fov_tables_match_jax():
                                        rtol=0, atol=1e-2)
             assert pt[bb][cc].shape == (pc._fov_trim[1] - pc._fov_trim[0] + 1,) \
                 + pc.plan.level_shapes[bb]
+
+
+# ---------------------------------------------------------------------------
+# a gaze per frame
+# ---------------------------------------------------------------------------
+
+def _moving_content(kind):
+    """The inputs of tests/test_moving_gaze_fused.py:57-101."""
+    H, W, F = 64, 256, 4
+    if kind == "video":
+        rng = np.random.RandomState(11)
+        ref = rng.randint(0, 255, (H, W, 3, F), dtype=np.uint8)
+        gaze = np.stack([np.linspace(5, W - 5, F), np.linspace(5, H - 5, F)], axis=1)
+        call = dict(dim_order="HWCF", frames_per_second=30, fixation_point=gaze)
+    else:
+        rng = np.random.RandomState(12)
+        ref = rng.randint(0, 255, (H, W, 3), dtype=np.uint8)
+        call = dict(dim_order="HWC", fixation_point=np.asarray([[30.0, 40.0]]))
+    test = np.clip(ref.astype(np.int16) + rng.randint(-18, 18, ref.shape),
+                   0, 255).astype(np.uint8)
+    return test, ref, call
+
+
+@pytest.mark.parametrize("jax_mode", ["jnp", "interpret"])
+@pytest.mark.parametrize("kind", ["video", "image"])
+def test_moving_gaze_matches_jax_predict(kind, jax_mode):
+    """The JAX package's bars between its own two paths on these inputs
+    (Q_per_ch rtol 2e-4 / atol 2e-5, |dJOD| <= 2e-3) hold for the port
+    against either of them."""
+    test, ref, call = _moving_content(kind)
+    jm = fv_jax.fvvdp(display_name="htc_vive_pro", foveated=True)
+    pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    _carry_state(jm, pm)
+    mode = pallas_cfg.forced(False) if jax_mode == "jnp" \
+        else pallas_cfg.forced(True, interpret=True)
+    with mode:
+        Q_j, s_j = jm.predict(test, ref, **call)
+    Q_p, s_p = pm.predict(test, ref, **call)
+    assert abs(Q_p - Q_j) <= 2e-3
+    np.testing.assert_allclose(s_p["Q_per_ch"], s_j["Q_per_ch"], rtol=2e-4, atol=2e-5)
+    if kind == "image":
+        assert np.all(s_p["Q_per_ch"][:, 1] == 0.0)
+
+
+@pytest.mark.parametrize("kind", ["video", "image"])
+def test_constant_per_frame_gaze_equals_the_fixed_gaze_route(kind):
+    test, ref, call = _content(kind)
+    n = 6 if kind == "video" else 1
+    pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    q_fixed, s_fixed = pm.predict(test, ref, fixation_point=np.array([20.0, 50.0]), **call)
+    core = pm._get_core(160, 64)
+    assert len(core._fov_table_cache) == 1
+    q_moving, s_moving = pm.predict(test, ref, fixation_point=np.tile([20.0, 50.0], (n, 1)),
+                                    **call)
+    assert not core._fov_table_cache             # the moving route frees the tables
+    assert abs(q_moving - q_fixed) <= 1e-3
+    np.testing.assert_allclose(s_moving["Q_per_ch"], s_fixed["Q_per_ch"], rtol=2e-4, atol=2e-5)
+    # rows beyond the last frame are ignored
+    q_long, _ = pm.predict(test, ref, fixation_point=np.tile([20.0, 50.0], (n + 3, 1)), **call)
+    assert q_long == q_moving
+
+
+def test_moving_gaze_blocks_take_their_own_rows():
+    """Scored in blocks of 4 + 2 frames or in one block of 6: the same."""
+    test, ref, call = _content("video")
+    gaze = np.stack([np.linspace(0, 159, 6), np.linspace(63, -10, 6)], axis=1)
+    one = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    two = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu",
+                        block_frames=4)
+    q1, s1 = one.predict(test, ref, fixation_point=gaze, **call)
+    q2, s2 = two.predict(test, ref, fixation_point=gaze, **call)
+    assert abs(q1 - q2) <= 1e-5
+    np.testing.assert_allclose(s2["Q_per_ch"], s1["Q_per_ch"], rtol=1e-5, atol=1e-7)
+    # and the gaze matters: held at its first point the score differs
+    q_held, _ = one.predict(test, ref, fixation_point=gaze[0], **call)
+    assert abs(q_held - q1) > 1e-3
+
+
+@pytest.mark.parametrize("kind", ["video", "image"])
+def test_moving_gaze_heatmap_matches_jax(kind):
+    """heatmap="raw" with a gaze per frame: the composed route with the
+    trilinear CSF of each frame, against the JAX package."""
+    test, ref, call = _moving_content(kind)
+    jm = fv_jax.fvvdp(display_name="htc_vive_pro", foveated=True, heatmap="raw")
+    pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, heatmap="raw",
+                       device="cpu")
+    _carry_state(jm, pm)
+    with pallas_cfg.forced(False):
+        Q_j, s_j = jm.predict(test, ref, **call)
+    Q_p, s_p = pm.predict(test, ref, **call)
+    assert pm._get_core(256, 64).route == "composed"
+    assert abs(Q_p - Q_j) <= 2e-3
+    np.testing.assert_allclose(s_p["Q_per_ch"], s_j["Q_per_ch"], rtol=2e-4, atol=2e-5)
+    hp, hj = s_p["heatmap"].astype(np.float32), np.asarray(s_j["heatmap"], np.float32)
+    assert hp.shape == hj.shape == (1, 1, 4 if kind == "video" else 1, 64, 256)
+    # float16 maps: half a unit in the last place of values up to 4
+    np.testing.assert_allclose(hp, hj, rtol=2e-3, atol=2e-3)
+    # the score does not depend on the heatmap
+    plain = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    _carry_state(jm, plain)
+    assert abs(plain.predict(test, ref, **call)[0] - Q_p) <= 1e-3
+
+
+def test_moving_gaze_on_luts_with_a_monotone_axis_takes_the_composed_route():
+    """mov_score indexes the rho and eccentricity axes by arithmetic; LUTs
+    flagged non-uniform there go through the composition's cell search, with
+    the same score on the shipped (in fact uniform) LUTs."""
+    test, ref, call = _moving_content("video")
+    pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    q_kernel_route, s_k = pm.predict(test, ref, **call)
+    luts = [dict(l, _uniform=dict(l["_uniform"], rho_log=False)) for l in pm._luts]
+    pm.load_state(pm.parameters, luts)
+    core = pm._get_core(256, 64)
+    assert core.route == "banded" and core.moving_route == "composed"
+    q_composed, s_c = pm.predict(test, ref, **call)
+    assert abs(q_composed - q_kernel_route) <= 1e-3
+    np.testing.assert_allclose(s_c["Q_per_ch"], s_k["Q_per_ch"], rtol=2e-4, atol=2e-5)
+
+
+def test_short_trajectory_raises():
+    test, ref, call = _content("video")
+    pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
+    with pytest.raises(RuntimeError, match="5 per-frame rows but the video has 6 frames"):
+        pm.predict(test, ref, fixation_point=np.zeros((5, 2)), **call)
+    with pytest.raises(ValueError, match="fixation_point"):
+        pm.predict(test, ref, fixation_point=np.zeros((6, 3)), **call)
+    with pytest.raises(ValueError, match="one row per frame"):
+        pm._get_core(160, 64).score_frames(torch.zeros((2, 4, 64, 160)), 2,
+                                           gaze=torch.zeros((3, 2)))
+    with pytest.raises(ValueError, match="either"):
+        pm._get_core(160, 64).score_frames(torch.zeros((2, 4, 64, 160)), 2)

@@ -132,10 +132,12 @@ def test_unsupported_call_options_raise():
     test, ref = _tiny_video()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fv.predict(test, ref, dim_order="HWCF", frames_per_second=30, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        fvvdp(device="cpu", foveated=True).predict(
-            test, ref, dim_order="HWCF", frames_per_second=30,
-            fixation_point=np.tile([20.0, 10.0], (6, 1)))
+    # a per-frame fixation point (a moving gaze) scores, like the same point held
+    fov = fvvdp(device="cpu", foveated=True)
+    kw = dict(dim_order="HWCF", frames_per_second=30)
+    q_moving, _ = fov.predict(test, ref, fixation_point=np.tile([20.0, 10.0], (6, 1)), **kw)
+    q_fixed, _ = fov.predict(test, ref, fixation_point=np.array([20.0, 10.0]), **kw)
+    assert np.isfinite(q_moving) and abs(q_moving - q_fixed) <= 1e-3
     vs = fvt.fvvdp_video_source_array(test, ref, 30, dim_order="HWCF",
                                       display_photometry=fv.display_photometry,
                                       device="cpu")
@@ -391,6 +393,132 @@ def test_card_routes_match_cpu_and_launch_their_kernels(cuda, route):
     counts = cuda_ops.launch_counts()
     assert all(counts[k] > 0 for k in launched), counts
     assert all(counts[k] == 0 for k in idle), counts
+    assert abs(q_gpu - q_cpu) <= 1e-3
+    np.testing.assert_allclose(s_gpu["Q_per_ch"], s_cpu["Q_per_ch"], rtol=1e-3, atol=1e-5)
+    if route == "heatmap":
+        np.testing.assert_allclose(s_gpu["heatmap"].astype(np.float32),
+                                   s_cpu["heatmap"].astype(np.float32), atol=5e-3)
+
+
+def _mov_inputs(F, h, w, n_e, ny, nr, two, device, seed=8):
+    """Synthetic inputs of the moving-gaze scorer: a sweeping gaze over a
+    30 x 20 degree field, a smooth LUT plus noise."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
+    rng = np.random.default_rng(seed)
+    band = torch.from_numpy((rng.standard_normal((F, 4, h, w)) * 0.05).astype(np.float32))
+    band[0, 1, :1] = band[0, 0, :1]            # D(T, T) = 0
+    L = torch.from_numpy((10.0 ** rng.uniform(-1.3, 2.6, (F, h, w))).astype(np.float32))
+    yy, xx = np.meshgrid(np.linspace(10, -10, h), np.linspace(-15, 15, w), indexing="ij")
+    vd = torch.from_numpy(np.stack([xx, yy]).astype(np.float32))
+    t_r = torch.from_numpy(rng.uniform(0, nr - 1, (h, w)).astype(np.float32))
+    t_r[0, 0], t_r[-1, -1] = 0.0, float(nr - 1)          # both ends of the window
+    gaze = torch.from_numpy(np.stack([np.linspace(-18, 18, F), np.linspace(12, -12, F)],
+                                     axis=1).astype(np.float32))
+    gaze[0] = vd[:, h // 2, w // 2]                      # ecc = 0 on a pixel
+    e, y, r = np.meshgrid(np.arange(n_e), np.arange(ny), np.arange(nr), indexing="ij")
+    V = (8.0 - 0.25 * e - 0.02 * (y - 8.0) ** 2 - 0.6 * r
+         + rng.uniform(-0.2, 0.2, e.shape)).astype(np.float32).reshape(n_e, ny * nr)
+    V2s = torch.from_numpy(V)
+    V2t = torch.from_numpy(V + rng.uniform(-0.5, 0.5, V.shape).astype(np.float32)) \
+        if two else None
+    score = bs.ScoreMeta(y0=-7.0, dy=0.6, Ymin=2.0 ** -7, Ymax=2.0 ** (-7 + 0.6 * (ny - 1)),
+                         p=2.4, q_s=3.2, q_t=3.1, c10=10.0 ** -0.5, corr=0.3, beta=0.96)
+    meta = ms.MovMeta(score, es0=0.0, des=0.35, emin=0.0, emax=(0.35 * (n_e - 1)) ** 2,
+                      ny=ny, nr=nr, off5=None if two else -0.8)
+    args = [band, L, vd, t_r, gaze, V2s, V2t]
+    return [a if a is None else a.to(device) for a in args] + [meta]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("two", [True, False], ids=["two_tables", "off5"])
+@pytest.mark.parametrize("lut", [(32, 19, 4), (32, 32, 32), (5, 1, 1)],
+                         ids=["shared", "global", "tiny"])
+@pytest.mark.parametrize("Fhw", [(3, 64, 256), (40, 9, 13), (1, 37, 200), (33, 68, 120)])
+def test_mov_score_kernel_matches_plain(cuda, Fhw, lut, two):
+    """Every instance of mov_score (two tables or one with an offset; the LUT
+    in shared or in global memory) within 2e-4 relative of the plain
+    version, on whole planes, ragged ones, an image and more than one chunk
+    of frames."""
+    from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
+    args = _mov_inputs(*Fhw, *lut, two, cuda)
+    assert ms.lut_in_shared(lut[0], args[-1]) == (lut != (32, 32, 32))
+    cuda_ops.reset_launch_counts()
+    got = ms.band_score2_mov(*args)
+    assert cuda_ops.launch_counts()["mov_score"] == 1
+    want = ms.band_score2_mov_plain(*args)
+    assert got.shape == (Fhw[0], 2) and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["L_bkg", "gaze", "contrast"])
+def test_scorers_keep_a_nan_on_the_card(cuda, bad):
+    """NaN in, NaN out, for that frame only: the kernels as their plain
+    versions."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
+    args = _mov_inputs(3, 20, 50, 32, 19, 4, True, cuda)
+    band, L, _, _, gaze = args[:5]
+    if bad == "L_bkg":
+        L[1, 3, 5] = float("nan")
+    elif bad == "gaze":
+        gaze[1, 1] = float("nan")
+    else:
+        band[1, 0, 2, 2] = float("nan")
+    nan_at = torch.zeros((3, 2), dtype=torch.bool)
+    nan_at[1, :1 if bad == "contrast" else 2] = True
+    for got in (ms.band_score2_mov(*args), ms.band_score2_mov_plain(*args)):
+        assert torch.equal(torch.isnan(got).cpu(), nan_at), got
+    if bad != "gaze":
+        m = args[-1].score
+        tables = torch.linspace(1.0, 3.0, 38, device=cuda).reshape(2, 19)
+        tabs = tables[0][:, None, None].expand(19, 20, 50).contiguous()
+        for got in (bs.band_score2(band, L, tables, m), bs.band_score2_plain(band, L, tables, m),
+                    bs.band_score2_fov(band, L, tabs, tabs, m)):
+            assert torch.equal(torch.isnan(got).cpu(), nan_at), got
+
+
+@pytest.mark.gpu
+def test_mov_score_wrapper_raises_on_cuda_tensors_it_cannot_take(cuda):
+    from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
+    args = _mov_inputs(2, 16, 24, 32, 19, 4, True, cuda)
+    for i in (0, 2, 3, 4, 5):
+        bad = list(args)
+        bad[i] = torch.cat([args[i], args[i]], dim=-1)[..., ::2]     # strided, same shape
+        with pytest.raises(ValueError, match="contiguous"):
+            ms.band_score2_mov(*bad)
+    with pytest.raises(ValueError, match="is on"):
+        ms.band_score2_mov(*args[:4], args[4].cpu(), *args[5:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["video", "image", "heatmap", "monotone_luts"])
+def test_card_moving_gaze_matches_cpu_and_launches_its_kernel(cuda, route):
+    test, ref = _tiny_video(shape=(67, 131, 3, 10))
+    gaze = np.stack([np.linspace(0, 130, 10), np.linspace(66, -5, 10)], axis=1)
+    kw = dict(dim_order="HWCF", frames_per_second=30, fixation_point=gaze)
+    opts = dict(display_name="htc_vive_pro", foveated=True)
+    if route == "image":
+        test, ref, kw = test[..., 0], ref[..., 0], dict(dim_order="HWC",
+                                                        fixation_point=gaze[3:4])
+    elif route == "heatmap":
+        opts["heatmap"] = "raw"
+
+    def metric(device, **extra):
+        fv = fvvdp(device=device, **opts, **extra)
+        if route == "monotone_luts":
+            luts = [dict(l, _uniform=dict(l["_uniform"], ecc_sqrt=False)) for l in fv._luts]
+            fv.load_state(fv.parameters, luts)
+        return fv
+
+    q_cpu, s_cpu = metric("cpu").predict(test, ref, **kw)
+    cuda_ops.reset_launch_counts()
+    q_gpu, s_gpu = metric(cuda, block_frames=4).predict(test, ref, **kw)
+    counts = cuda_ops.launch_counts()
+    kernel_route = route in ("video", "image")
+    assert counts["expand_contrast"] > 0 and counts["band_score2_fov"] == 0, counts
+    assert (counts["mov_score"] > 0) == kernel_route, counts
     assert abs(q_gpu - q_cpu) <= 1e-3
     np.testing.assert_allclose(s_gpu["Q_per_ch"], s_cpu["Q_per_ch"], rtol=1e-3, atol=1e-5)
     if route == "heatmap":
