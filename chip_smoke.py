@@ -12,6 +12,10 @@ Phases, each raising on failure:
      its bound and, where one exists, a library call computing the same
      function; mov_score with a sweeping gaze on two tables, on one table
      and an offset, on an image, and with the whole LUT in global memory;
+     expand_score2 and mov_score on both arms (16-byte loads at the 4K
+     levels; 4-byte loads on an odd width, an odd pixel count and views
+     that start off a 16-byte boundary), with the registers nvcc -Xptxas -v
+     reported and the SASS instructions per pixel(-frame) from cuobjdump;
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
@@ -42,11 +46,26 @@ must not; the counts are set to 0 just before it and read just after.
 
 Imports nothing of JAX or of the JAX package.  Exits non-zero without a
 CUDA card, and fails at import when the package is not beside it.
+
+To compare two trees on one card, time them in turns, one process after
+another:
+
+    python3 chip_smoke.py --time-kernels [--package-root DIR]
+
+builds the kernels of the package under DIR (default: beside this script)
+and times expand_score2 and every instance of mov_score at the 4K levels of
+one 32-frame block, nothing else; it prints one JSON line.  DIR may hold an
+earlier commit's package (git archive) or a copy with one edit.
 """
 import json
+import os
+import re
 import subprocess
 import sys
 import time
+
+if "--package-root" in sys.argv:
+    sys.path.insert(0, os.path.abspath(sys.argv[sys.argv.index("--package-root") + 1]))
 
 import numpy as np
 import torch
@@ -230,24 +249,52 @@ def check_reduce(gpyr_in, cases):
     return levels[:-1]
 
 
+def offset_by_one_float(t):
+    """The same values in storage that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_expand(core, gpyr, sfu_rate, cases):
-    for bb in range(core.plan.height):
-        fine, coarse = gpyr[bb], gpyr[bb + 1]
+    """Every level of one block on the vector arm (the main path), then the
+    scalar arm: level 1 cut to an odd width, and level 2 stored 4 bytes off a
+    16-byte boundary; then one frame of level 2 as the image path gives it,
+    with zero transient channels, whose sum must be exactly 0."""
+    odd = gpyr[1][:8, :, :, :-1].contiguous()
+    image = [g[:1].clone() for g in gpyr[2:4]]
+    for g in image:
+        g[:, 2:] = 0.0
+    # level, fine, coarse, on the main path, on the vector arm
+    runs = [(bb, gpyr[bb], gpyr[bb + 1], True, True) for bb in range(core.plan.height)]
+    runs += [(1, odd, gpyr[2][:8].contiguous(), False, False),
+             (2, offset_by_one_float(gpyr[2][:8]), gpyr[3][:8].contiguous(), False, False),
+             (2, image[0], image[1], False, True)]
+    for bb, fine, coarse, main_path, want_vec in runs:
         tabs, meta = core._score_tables[bb], core._meta[bb]
+        vec = bp.plan_for(fine, coarse, tabs).vec
+        if vec != want_vec:
+            raise AssertionError(f"expand_score2 at {tuple(fine.shape)}, address % 16 = "
+                                 f"{fine.data_ptr() % 16}: vector arm is {vec}")
         got = bp.expand_score2(fine, coarse, tabs, meta).double()
         want = bp.expand_score2_plain(fine, coarse, tabs, meta).double()
         err = (got - want).abs().max().item()
         rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
-        ok = rel <= 1e-4
+        ok = rel <= 1e-4 and bool(torch.isfinite(got).all())
+        if fine is image[0]:
+            ok = ok and bool((got[:, 1] == 0.0).all())
         ms = time_ms(lambda: bp.expand_score2(fine, coarse, tabs, meta))
-        plain_ms = time_ms(lambda: bp.expand_score2_plain(fine, coarse, tabs, meta))
+        plain_ms = time_ms(lambda: bp.expand_score2_plain(fine, coarse, tabs, meta),
+                           runs=3, warmup=1)
         Fr, _, h, w = fine.shape
         nbytes = 4 * (fine.numel() + coarse.numel() + tabs.numel() + 2 * Fr)
         b_ms, b_by = bound(nbytes, SFU_PER_PIXEL * Fr * h * w, sfu_rate)
-        row = dict(case="expand_score2", shape=list(fine.shape), max_abs_err=err,
+        row = dict(case="expand_score2", shape=list(fine.shape),
+                   arm="vector" if vec else "scalar", max_abs_err=err,
                    max_rel_err=rel, tolerance="relative 1e-4 on per-frame sums",
                    ok=ok, launches_per_call=1, ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by, main_path=True)
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, main_path=main_path)
         emit(row)
         cases["rows"].append(row)
         if not ok:
@@ -374,40 +421,67 @@ def check_band_scores(levels, core_pc, core_2, core_fov, fov_tabs, sfu_rate, cas
                 main_path=True), f"level {bb} ({note})")
 
 
-def check_mov_score(levels, core_fov, sfu_rate, cases):
-    """mov_score at every level of one block: the shipped LUT pair with a
-    gaze sweeping corner to corner (two tables in shared memory: the main
+def block_gaze(core_fov, n_frames):
+    """View directions of a gaze sweeping corner to corner over n_frames."""
+    return core_fov._gaze_directions(torch.from_numpy(
+        sweeping_gaze(core_fov.plan.W, core_fov.plan.H, n_frames)))
+
+
+def mov_instances(core_fov, bb, band, L_bkg, gaze_dir):
+    """(note, on the main path, arguments) of the four instances of mov_score
+    at level bb: the shipped LUT pair (two tables in shared memory: the main
     path's instance), the one-table arm (the omega = 5 table replaced by its
     mean offset from the omega = 0 one), an image (one frame, zero transient
     contrast) and the LUT with every knot kept, which the kernel reads from
     global memory."""
-    plan = core_fov.plan
-    n_frames = levels[0][0].shape[0]
-    gaze_dir = core_fov._gaze_directions(torch.from_numpy(
-        sweeping_gaze(plan.W, plan.H, n_frames)))
+    L = L_bkg[:, 0]
+    vd = core_fov._band_view_dir[bb]
+    d = core_fov._moving_band_data(bb)
+    full = core_fov._moving_band_data(bb, windowed=False)
+    one = d["meta"]._replace(off5=float((d["V2_5"] - d["V2"]).mean().item()))
+    image = band[:1].clone()
+    image[:, 2:] = 0.0
+    return [
+        ("two tables", True, (band, L, vd, d["t_r"], gaze_dir, d["V2"], d["V2_5"], d["meta"])),
+        ("one table and off5", False, (band, L, vd, d["t_r"], gaze_dir, d["V2"], None, one)),
+        ("image", False, (image, L[:1], vd, d["t_r"], gaze_dir[:1], d["V2"], d["V2_5"],
+                          d["meta"])),
+        ("whole LUT, global memory", False,
+         (band, L, vd, full["t_r"], gaze_dir, full["V2"], full["V2_5"], full["meta"])),
+    ]
+
+
+def mov_scalar_arm_instances(core_fov, bb, band, L_bkg, gaze_dir):
+    """Level bb on the arm with 4-byte loads: cut to an odd number of pixels,
+    and whole with L_bkg stored 4 bytes off a 16-byte boundary."""
+    d = core_fov._moving_band_data(bb)
+    vd = core_fov._band_view_dir[bb]
+    tail = (d["V2"], d["V2_5"], d["meta"])
+    cut = [t[..., :-1, :-1].contiguous() for t in (band, L_bkg[:, 0], vd, d["t_r"])]
+    return [("odd pixel count", False, (*cut, gaze_dir, *tail)),
+            ("L_bkg off a 16-byte boundary", False,
+             (band, offset_by_one_float(L_bkg[:, 0]), vd, d["t_r"], gaze_dir, *tail))]
+
+
+def check_mov_score(levels, core_fov, sfu_rate, cases):
+    """mov_score at every level of one block, every instance, on the vector
+    arm; level 2 once more on the scalar arm."""
+    gaze_dir = block_gaze(core_fov, levels[0][0].shape[0])
     for bb, (band, L_bkg) in enumerate(levels):
-        L = L_bkg[:, 0]
-        Fr, _, h, w = band.shape
-        vd = core_fov._band_view_dir[bb]
-        d = core_fov._moving_band_data(bb)
-        full = core_fov._moving_band_data(bb, windowed=False)
-        one = d["meta"]._replace(off5=float((d["V2_5"] - d["V2"]).mean().item()))
-        image = band[:1].clone()
-        image[:, 2:] = 0.0
-        runs = [
-            ("two tables", True, (band, L, vd, d["t_r"], gaze_dir, d["V2"], d["V2_5"], d["meta"])),
-            ("one table and off5", False, (band, L, vd, d["t_r"], gaze_dir, d["V2"], None, one)),
-            ("image", False, (image, L[:1], vd, d["t_r"], gaze_dir[:1], d["V2"], d["V2_5"],
-                              d["meta"])),
-            ("whole LUT, global memory", False,
-             (band, L, vd, full["t_r"], gaze_dir, full["V2"], full["V2_5"], full["meta"])),
-        ]
-        for note, main_path, args in runs:
+        runs = [r + (True,) for r in mov_instances(core_fov, bb, band, L_bkg, gaze_dir)]
+        if bb == 2:
+            runs += [r + (False,) for r in
+                     mov_scalar_arm_instances(core_fov, bb, band, L_bkg, gaze_dir)]
+        for note, main_path, args, want_vec in runs:
             meta = args[-1]
             n_e = args[5].shape[0]
+            h, w = args[0].shape[-2:]
             shared = ms.lut_in_shared(n_e, meta)
             if shared != (not note.startswith("whole LUT")):
                 raise AssertionError(f"mov_score ({note}): LUT in shared memory is {shared}")
+            vec = ms.plan_for(*args[:5], [("V2s", args[5])])[0].vec
+            if vec != want_vec:
+                raise AssertionError(f"mov_score ({note}) at {(h, w)}: vector arm is {vec}")
             got, want = ms.band_score2_mov(*args), ms.band_score2_mov_plain(*args)
             torch.cuda.synchronize()
             rel = rel_err(got, want)
@@ -423,7 +497,8 @@ def check_mov_score(levels, core_fov, sfu_rate, cases):
             b_ms, b_by = bound(4 * (5 * nf * h * w + 3 * h * w + lut_floats + 4 * nf),
                                SFU_PER_PIXEL_MOV * nf * h * w, sfu_rate)
             add_row(cases, dict(
-                case="mov_score", shape=[nf, h, w], note=f"{note}, LUT {n_e} x {meta.ny} x "
+                case="mov_score", shape=[nf, h, w], arm="vector" if vec else "scalar",
+                note=f"{note}, LUT {n_e} x {meta.ny} x "
                 f"{meta.nr} in {'shared' if shared else 'global'} memory", max_abs_err=err,
                 max_rel_err=rel, tolerance="relative 2e-4 on per-frame sums", ok=ok,
                 launches_per_call=1, ms=ms_k, plain_ms=plain_ms, library_ms=None,
@@ -463,6 +538,99 @@ def cut_luts(fv):
     return luts
 
 
+# the kernels whose rows carry registers and SASS counts: library stem, name
+# of the __global__ function, template arguments of the main path's instance
+# (expand_score2: vector arm, background channel 1; mov_score: two tables,
+# LUT in shared memory, vector arm)
+REDESIGNED = {"expand_score2": ("band_pipeline", "expand_score_kernel", "11"),
+              "mov_score": ("mov_score", "mov_score_kernel", "111")}
+
+
+def _instance(symbol, function):
+    """Template arguments (booleans and one-digit integers) of a mangled
+    kernel name as a string of digits, or None when the symbol is not an
+    instance of ``function``."""
+    m = re.search(function + r"I((?:L[bi][0-9]E)+)E", symbol)
+    return None if m is None else "".join(re.findall(r"L[bi]([0-9])E", m.group(1)))
+
+
+def ptxas_usage(stem, function):
+    """{instance: (registers, spill bytes)} from what nvcc -Xptxas -v printed."""
+    usage, cur, spills = {}, None, 0
+    for line in _lib.build_log(stem).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur, spills = _instance(m.group(1), function), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            usage[cur] = (int(m.group(1)), spills)
+    return usage
+
+
+def sass_counts(stem, function):
+    """{instance: counts} from cuobjdump -sass of the built library, or None
+    where the toolkit has no cuobjdump: every instruction of the kernel but
+    the padding, those of its longest loop (the span of the backward branch
+    that jumps furthest), and the ex2 instructions in each.  The scorers run
+    four ex2 per pixel(-frame), so a count over a quarter of its ex2 is the
+    instructions per pixel(-frame)."""
+    tool = os.path.join(os.path.dirname(_lib.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        return None
+    r = subprocess.run([tool, "-sass", _lib.build()[stem]], capture_output=True, text=True,
+                       timeout=120)
+    if r.returncode != 0:
+        return None
+    out, cur, code = {}, None, []
+
+    def close():
+        if cur is None or not code:
+            return
+        addr = [a for a, _ in code]
+        loop = []
+        for i, (a, text) in enumerate(code):
+            m = re.search(r"\bBRA\S*\s+(?:\S+\s+)?`?\(?(?:0x)?([0-9a-f]+)\)?\s*$", text)
+            if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
+                span = code[addr.index(int(m.group(1), 16)):i + 1]
+                loop = max(loop, span, key=len)
+        ex2 = lambda seq: sum("MUFU.EX2" in t for _, t in seq)
+        out[cur] = dict(total=len(code), total_ex2=ex2(code), loop=len(loop), loop_ex2=ex2(loop))
+
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            close()
+            cur, code = _instance(m.group(1), function), []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+        if m and cur is not None and not m.group(2).startswith("NOP"):
+            code.append((int(m.group(1), 16), m.group(2)))
+    close()
+    return out
+
+
+def build_facts(name):
+    """Registers, spills and SASS instructions per pixel(-frame) of every
+    instance of one redesigned kernel, the main path's instance first."""
+    stem, function, main_instance = REDESIGNED[name]
+    regs, sass = ptxas_usage(stem, function), sass_counts(stem, function)
+    if main_instance not in regs:
+        raise AssertionError(f"{name}: nvcc -Xptxas -v reported no instance "
+                             f"{main_instance} of {function}: {sorted(regs)}")
+    facts = {}
+    for inst in sorted(regs, key=lambda i: (i != main_instance, i)):
+        per = "not measured"
+        if sass is not None and inst in sass:
+            c = sass[inst]
+            n, ex2 = (c["loop"], c["loop_ex2"]) if c["loop_ex2"] >= 4 else (c["total"], c["total_ex2"])
+            per = dict(c, per_pixel=4.0 * n / ex2 if ex2 else None)
+        facts[inst] = dict(registers=regs[inst][0], spill_bytes=regs[inst][1], sass=per)
+    return main_instance, facts
+
+
 def kernel_summary(rows, path_launches):
     """One entry per kernel: the sums over the cases of one main-path block
     (every pyramid level, the carried temporal window), the largest error
@@ -488,7 +656,72 @@ def kernel_summary(rows, path_launches):
             bound_by="bytes" if by_bytes >= by_ops else "operations",
             library_ms=None if any(v is None for v in lib) else sum(lib),
             cases=len(mine)))
+        if name in REDESIGNED:
+            inst, facts = build_facts(name)
+            sass = facts[inst]["sass"]
+            out[-1].update(
+                registers=facts[inst]["registers"], spill_bytes=facts[inst]["spill_bytes"],
+                sass_per_pixel=sass if isinstance(sass, str) else sass["per_pixel"],
+                instances=facts,
+                scalar_arm_cases=sum(r.get("arm") == "scalar" for r in mine))
     return out
+
+
+def first_block(fv, dev):
+    """The clip and its first block as the main path sees it: the source, the
+    carried window (ct, cr), the block's new frames (nt, nr), the temporal
+    taps and the block size."""
+    test_v, ref_v = synth_clip(H, W, N_FRAMES)
+    B = fv._pick_block_size(H, W, N_FRAMES)
+    vs = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
+                                      display_photometry=fv.display_photometry,
+                                      device=dev)
+    fl = temporal_ops.filter_len_for_fps(FPS)
+    taps = torch.as_tensor(temporal_ops.temporal_filters(
+        FPS, fl, fv.sustained_sigma, fv.sustained_beta), device=dev)
+    pad_idx = temporal_ops.padding_indices(N_FRAMES, fl, fv.temp_padding)
+    ct, cr = vs.get_indexed_luminance_block(pad_idx[:fl - 1])
+    nt, nr = vs.get_luminance_block(0, B)
+    return test_v, ref_v, vs, (ct, nt, cr, nr), taps, B
+
+
+def time_kernels(dev):
+    """--time-kernels: expand_score2 and every instance of mov_score at the
+    levels of one 4K block, through the wrappers of whatever package was
+    imported, timed as phase 3 times them.  One JSON line."""
+    smi = nvidia_smi("name,power.limit")
+    _lib.build()
+    fv = fvt.fvvdp(display_name="standard_4k")
+    core = fv._get_core(W, H)
+    _, _, vs, window, taps, B = first_block(fv, dev)
+    gpyr = [tmp.temporal_pair(*window, taps)]
+    del vs, window
+    for _ in range(core.plan.height):
+        gpyr.append(red.gausspyr_reduce(gpyr[-1]))
+    out = dict(phase="time_kernels", package=os.path.dirname(os.path.abspath(fvt.__file__)),
+               nvidia_smi=smi, block_frames=B, expand_score2=[], mov_score={})
+    sums = []
+    for bb in range(core.plan.height):
+        args = (gpyr[bb], gpyr[bb + 1], core._score_tables[bb], core._meta[bb])
+        sums.append(bp.expand_score2(*args).double().sum().item())
+        out["expand_score2"].append(time_ms(lambda: bp.expand_score2(*args)))
+    out["expand_score2_sum_ms"] = sum(out["expand_score2"])
+    out["expand_score2_checksum"] = sums
+    core_fov = fvt.fvvdp(display_name="standard_4k", foveated=True)._get_core(W, H)
+    gaze_dir = block_gaze(core_fov, B)
+    sums = []
+    for bb in range(core.plan.height):
+        band, L_bkg = ec.expand_contrast(gpyr[bb], gpyr[bb + 1])
+        for note, _, args in mov_instances(core_fov, bb, band, L_bkg, gaze_dir):
+            if note == "two tables":
+                sums.append(ms.band_score2_mov(*args).double().sum().item())
+            out["mov_score"].setdefault(note, []).append(
+                time_ms(lambda: ms.band_score2_mov(*args)))
+        del band, L_bkg
+    out["mov_score_sum_ms"] = {k: sum(v) for k, v in out["mov_score"].items()}
+    out["mov_score_checksum"] = sums
+    emit(out)
+    return 0
 
 
 def main():
@@ -497,6 +730,8 @@ def main():
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if "--time-kernels" in sys.argv:
+        return time_kernels(dev)
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -521,19 +756,9 @@ def main():
               nvcc_seconds=_lib.build_seconds))
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
-    test_v, ref_v = synth_clip(H, W, N_FRAMES)
     fv = fvt.fvvdp(display_name="standard_4k")
     core = fv._get_core(W, H)
-    B = fv._pick_block_size(H, W, N_FRAMES)
-    vs = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
-                                      display_photometry=fv.display_photometry,
-                                      device=dev)
-    fl = temporal_ops.filter_len_for_fps(FPS)
-    taps = torch.as_tensor(temporal_ops.temporal_filters(
-        FPS, fl, fv.sustained_sigma, fv.sustained_beta), device=dev)
-    pad_idx = temporal_ops.padding_indices(N_FRAMES, fl, fv.temp_padding)
-    ct, cr = vs.get_indexed_luminance_block(pad_idx[:fl - 1])
-    nt, nr = vs.get_luminance_block(0, B)
+    test_v, ref_v, vs, (ct, nt, cr, nr), taps, B = first_block(fv, dev)
     # the plain-PyTorch stage before the kernels: decode, EOTF, RGB -> Y
     emit(dict(phase="luminance_block", frames=B,
               ms=time_ms(lambda: vs.get_luminance_block(0, B))))

@@ -15,20 +15,40 @@
 // Contrast and L_bkg never leave the block.  The per-band gain is folded
 // into corr by the caller.
 //
-// The expansion (a polyphase filter over a clamped coarse window in shared
-// memory) is csrc/expand.cuh, shared with expand_contrast.cu.
-//
-// Bound on this card: about 11 log2/exp2 per fine pixel (the SFU rate)
-// against 20 bytes of fine input per pixel; whichever is larger.  Design:
-// one block per (frame, 16 x 64 fine tile).  The block stages the
-// replicate-extended 4-channel coarse window (10 x 34) in shared memory,
-// expands it vertically into shared memory (16 x 34 per channel), and each
-// thread then expands horizontally, scores four pixels and keeps two
-// running sums.  The table (2 x n floats) sits in shared memory and is read
-// with a direct 2-tap lookup.  Per-block sums are reduced in a fixed order
-// and written as partials (F, n_tiles, 2); a second kernel sums them per
-// frame in a fixed order.  No atomics: results are deterministic.
+// Bound on this card: memory bytes, 16 B of fine and 4 B of coarse per fine
+// pixel.  What stands against reaching it is the instruction count (the
+// expansion, 11 log2/exp2 and five divisions per pixel take longer to run than
+// the bytes take to arrive unless each is cheap) and the latency of a short-lived
+// block that waits for its bytes before it can start.  Design:
+//  - a block of 256 threads owns a 16 x 128 fine tile and walks the frames of
+//    that tile; a thread owns a 2 x 4 patch of it.  Per frame a thread loads
+//    fine as eight 16-byte loads (2 rows x 4 channels; a warp covers 128
+//    contiguous columns), and the loads of frame j + 1 are requested before the
+//    arithmetic of frame j.  The replicate-extended coarse window
+//    (4 x 10 x 66) of frame j + 1 arrives in the second of two shared buffers
+//    by 4-byte asynchronous copies meanwhile: one barrier per frame.  The
+//    table, the patch's place and the window's clamped addresses are worked
+//    out once per block, not per frame.  Where a level has too few tiles to
+//    fill the card, its frames are split over grid.y;
+//  - the patch is expanded in registers from 3 x 4 window samples per channel
+//    (csrc/expand.cuh), bit for bit as the plain version;
+//  - one reciprocal of L_bkg and of dy (the latter from the host) and
+//    multiplies in place of divisions, log2 and exp2 as the special-function
+//    unit's instructions (score_math.cuh: ApproxMath): within 3e-6 relative
+//    of the plain version on a frame's sum at the 4K levels, against a bar of
+//    1e-4;
+//  - the vector arm needs W % 4 == 0 and a 16-byte aligned fine; everything
+//    else takes the scalar arm of the same kernel (4-byte loads, each
+//    masked).  The wrapper chooses the arm, the tiles and the split of the
+//    frames (ops/cuda/band_pipeline.py:launch_plan); this file checks them.
+// The per-frame sums go through the two passes of partials.cuh: per block and
+// frame in a fixed order, then per frame over the tiles in a fixed order.  No
+// atomics: results are deterministic.  A NaN in either level gives a NaN sum
+// for its frame (score_math.cuh).
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "expand.cuh"
 #include "partials.cuh"
@@ -36,116 +56,196 @@
 
 namespace {
 
-using fvvdp::kCoarseH;
-using fvvdp::kCoarseW;
-using fvvdp::kRowsPerPass;
-using fvvdp::kTileH;
-using fvvdp::kTileW;
+using fvvdp::kFrameChunk;
+using fvvdp::kPatchTileH;
+using fvvdp::kPatchTileW;
+using fvvdp::kWinH;
+using fvvdp::kWinPitch;
+using Math = fvvdp::ApproxMath;
 constexpr int kThreads = fvvdp::kTileThreads;
 constexpr int kMaxGrid = 64;
+static_assert(kThreads == fvvdp::kPixelThreads, "the first pass of partials.cuh");
 
-struct ScoreParams {
-    float y0, dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta;
+struct ScoreArgs {
+    const float* fine;     // (F, 4, H, W)
+    const float* coarse;   // (F, 4, h2, w2)
+    const float* tables;   // (2, n_grid)
+    float* partials;       // (F, tiles, 2)
+    int F, H, W, h2, w2, n_grid, tiles_x, frames_per_group;
+    float y0, inv_dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta;
 };
 
-__global__ void __launch_bounds__(kThreads)
-expand_score_kernel(const float* __restrict__ fine, const float* __restrict__ coarse,
-                    const float* __restrict__ tables, float* __restrict__ partials,
-                    int H, int W, int h2, int w2, int n_grid, int bkg_ch,
-                    ScoreParams sp) {
-    __shared__ float s_c[4][kCoarseH][kCoarseW];
-    __shared__ float s_v[4][kTileH][kCoarseW + 1];
-    __shared__ float s_tab[2][kMaxGrid];
-    __shared__ float s_red[2][kThreads / 32];
+// Four consecutive values of one row; columns at or past n_cols read as 0.
+template <bool kVec>
+__device__ __forceinline__ void load_quad(const float* __restrict__ p, int n_cols,
+                                          float (&v)[4]) {
+    if (kVec) {
+        float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (n_cols > 0) q = __ldcs(reinterpret_cast<const float4*>(p));
+        v[0] = q.x;
+        v[1] = q.y;
+        v[2] = q.z;
+        v[3] = q.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = k < n_cols ? __ldcs(p + k) : 0.0f;
+    }
+}
 
-    const int f = blockIdx.z;
-    const int r0 = blockIdx.y * kTileH;
-    const int c0 = blockIdx.x * kTileW;
+// A thread's 2 x 4 patch of the four fine channels: [row][channel][column].
+struct Patch {
+    float v[2][4][4];
+};
+
+template <bool kVec>
+__device__ __forceinline__ void load_patch(const float* __restrict__ p, size_t plane, int W,
+                                           int n_rows, int n_cols, Patch& out) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch)
+            load_quad<kVec>(p + ch * plane + (size_t)r * W, r < n_rows ? n_cols : 0,
+                            out.v[r][ch]);
+}
+
+template <bool kVec, int kBkg>
+__global__ void __launch_bounds__(kThreads, 2) expand_score_kernel(ScoreArgs a) {
+    __shared__ __align__(16) float s_w[2][4][kWinH][kWinPitch];
+    __shared__ float s_tab[2 * kMaxGrid];
+    __shared__ fvvdp::FrameSums s_part;
+
     const int tid = threadIdx.x;
+    const int tile_y = blockIdx.x / a.tiles_x, tile_x = blockIdx.x - tile_y * a.tiles_x;
+    const int r0 = tile_y * kPatchTileH, c0 = tile_x * kPatchTileW;
+    const int pj = tid & 31, pi = tid >> 5;   // the thread's patch in the tile
+    const int gy = r0 + 2 * pi, gx = c0 + 4 * pj;
+    const int n_rows = min(max(a.H - gy, 0), 2);
+    const int n_cols = min(max(a.W - gx, 0), 4);   // 0 or 4 on the vector arm
+    const size_t plane = (size_t)a.H * a.W;
+    const int c_plane = a.h2 * a.w2;
+    const float* fine0 = a.fine + (size_t)gy * a.W + gx;
+    const fvvdp::WindowMap wmap = fvvdp::window_map(a.h2, a.w2, r0, c0, tid);
 
-    for (int i = tid; i < 2 * n_grid; i += kThreads) s_tab[i / n_grid][i % n_grid] = tables[i];
+    const int f_begin = blockIdx.y * a.frames_per_group;
+    const int f_end = min(a.F, f_begin + a.frames_per_group);
 
-    fvvdp::expand_tile_vertical<4>(coarse + (size_t)f * 4 * h2 * w2, h2, w2, r0, c0, tid,
-                                   s_c, s_v);
+    // frame f_begin: its fine patch into registers, its window into buffer 0
+    Patch cur;
+    load_patch<kVec>(fine0 + (size_t)f_begin * 4 * plane, plane, a.W, n_rows, n_cols, cur);
+    fvvdp::stage_window_async<4>(wmap, a.coarse + (size_t)f_begin * 4 * c_plane, c_plane, s_w[0]);
+    __pipeline_commit();
+    if (tid < 2 * a.n_grid) s_tab[tid] = a.tables[tid];
 
-    const int lc = tid % kTileW;
-    const int gx = c0 + lc;
-    const size_t plane = (size_t)H * W;
-    const float* fbase = fine + (size_t)f * 4 * plane;
-    float acc_s = 0.0f, acc_t = 0.0f;
-    for (int lr = tid / kTileW; lr < kTileH; lr += kRowsPerPass) {
-        const int gy = r0 + lr;
-        if (gy >= H || gx >= W) continue;
-        float e[4];
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch)
-            e[ch] = fvvdp::expand_tile_horizontal(s_v[ch][lr], lc);
-        const float lbkg = fvvdp::clamp_min(e[bkg_ch], 0.1f);
-        float con[4];
-        const float* fp = fbase + (size_t)gy * W + gx;
-#pragma unroll
-        for (int ch = 0; ch < 4; ++ch)
-            con[ch] = fvvdp::clamp_max((fp[ch * plane] - e[ch]) / lbkg, 1000.0f);
+    const float n_top = static_cast<float>(a.n_grid - 1);
+    const float* tab_s = s_tab;
+    const float* tab_t = s_tab + a.n_grid;
 
-        float u = (log2f(fvvdp::clampf(lbkg, sp.Ymin, sp.Ymax)) - sp.y0) / sp.dy;
-        u = fvvdp::clampf(u, 0.0f, static_cast<float>(n_grid - 1));
-        const float ls_s = fvvdp::table_interp(s_tab[0], n_grid, u) + sp.lcorr;
-        const float ls_t = fvvdp::table_interp(s_tab[1], n_grid, u) + sp.lcorr;
-        acc_s += fvvdp::d_beta_log2(con[0], con[1], ls_s, sp.p, sp.q_s, sp.lc10, sp.beta);
-        acc_t += fvvdp::d_beta_log2(con[2], con[3], ls_t, sp.p, sp.q_t, sp.lc10, sp.beta);
-    }
-
-    // fixed-order block reduction: warp shuffles, then warp 0's lane 0
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        acc_s += __shfl_down_sync(0xffffffffu, acc_s, off);
-        acc_t += __shfl_down_sync(0xffffffffu, acc_t, off);
-    }
-    const int warp = tid / 32, lane = tid % 32;
-    if (lane == 0) {
-        s_red[0][warp] = acc_s;
-        s_red[1][warp] = acc_t;
-    }
-    __syncthreads();
-    if (tid == 0) {
-        float s = 0.0f, t = 0.0f;
-        for (int w = 0; w < kThreads / 32; ++w) {
-            s += s_red[0][w];
-            t += s_red[1][w];
+    for (int f = f_begin; f < f_end; ++f) {
+        const int j = (f - f_begin) % kFrameChunk;
+        const int buf = (f - f_begin) & 1;
+        // this frame's window has landed, and nobody reads the other buffer any more
+        __pipeline_wait_prior(0);
+        __syncthreads();
+        // the next frame's bytes are requested before this frame's arithmetic
+        Patch nxt;
+        const bool more = f + 1 < f_end;
+        load_patch<kVec>(fine0 + (size_t)(f + 1) * 4 * plane, plane, a.W, more ? n_rows : 0,
+                         n_cols, nxt);
+        if (more) {
+            fvvdp::stage_window_async<4>(wmap, a.coarse + (size_t)(f + 1) * 4 * c_plane, c_plane,
+                                         s_w[buf ^ 1]);
+            __pipeline_commit();
         }
-        const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-        const size_t n_tiles = (size_t)gridDim.x * gridDim.y;
-        float* out = partials + ((size_t)f * n_tiles + tile) * 2;
-        out[0] = s;
-        out[1] = t;
+
+        float e[4][2][4];    // [channel][row][column]
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) fvvdp::expand_patch(s_w[buf][ch], pi, pj, e[ch]);
+
+        float acc_s = 0.0f, acc_t = 0.0f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                const float lbkg = fvvdp::clamp_min(e[kBkg][r][k], 0.1f);
+                const float inv_l = Math::rcp(lbkg);
+                float con[4];
+#pragma unroll
+                for (int ch = 0; ch < 4; ++ch)
+                    con[ch] = fvvdp::clamp_max((cur.v[r][ch][k] - e[ch][r][k]) * inv_l,
+                                               1000.0f);
+
+                float u = (Math::log2(fvvdp::clampf(lbkg, a.Ymin, a.Ymax)) - a.y0) * a.inv_dy;
+                u = fvvdp::clampf(u, 0.0f, n_top);
+                int i0, i1;
+                float fr;
+                fvvdp::table_knots(u, a.n_grid, &i0, &i1, &fr);
+                const float ls_s = tab_s[i0] * (1.0f - fr) + tab_s[i1] * fr + a.lcorr;
+                const float ls_t = tab_t[i0] * (1.0f - fr) + tab_t[i1] * fr + a.lcorr;
+                const float d_s = fvvdp::d_beta_log2<Math>(con[0], con[1], ls_s, a.p, a.q_s,
+                                                           a.lc10, a.beta);
+                const float d_t = fvvdp::d_beta_log2<Math>(con[2], con[3], ls_t, a.p, a.q_t,
+                                                           a.lc10, a.beta);
+                const bool live = r < n_rows && k < n_cols;
+                acc_s += live ? d_s : 0.0f;
+                acc_t += live ? d_t : 0.0f;
+            }
+        }
+        fvvdp::frame_warp_sums(acc_s, acc_t, s_part, j);
+        if (j == kFrameChunk - 1 || !more)
+            fvvdp::flush_frame_chunk(s_part, j + 1, f - j, a.partials);
+        cur = nxt;
+    }
+}
+
+template <bool kVec, int kBkg>
+int launch(const ScoreArgs& a, int tiles, int groups, float* out, cudaStream_t stream) {
+    expand_score_kernel<kVec, kBkg><<<dim3(tiles, groups), kThreads, 0, stream>>>(a);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fvvdp::sum_partials_kernel<<<a.F, fvvdp::kSumThreads, 0, stream>>>(a.partials, out, tiles);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kVec>
+int launch_bkg(int bkg_ch, const ScoreArgs& a, int tiles, int groups, float* out,
+               cudaStream_t stream) {
+    switch (bkg_ch) {
+        case 0: return launch<kVec, 0>(a, tiles, groups, out, stream);
+        case 1: return launch<kVec, 1>(a, tiles, groups, out, stream);
+        case 2: return launch<kVec, 2>(a, tiles, groups, out, stream);
+        default: return launch<kVec, 3>(a, tiles, groups, out, stream);
     }
 }
 
 }  // namespace
 
-extern "C" int fvvdp_expand_score2_n_tiles(int H, int W) {
-    const dim3 g = fvvdp::tile_grid(1, H, W);
-    return static_cast<int>(g.x * g.y);
-}
-
 // fine (F,4,H,W), coarse (F,4,h2,w2), tables (2,n_grid), partials scratch
-// (F, n_tiles, 2) and out (F, 2): device pointers, float32, contiguous.
+// (F, tiles_x * tiles_y, 2) and out (F, 2): device pointers, float32,
+// contiguous.  vec, tiles_x, tiles_y, frames_per_group and groups are the
+// caller's launch plan (ops/cuda/band_pipeline.py:launch_plan): the arm with
+// 16-byte loads, the 16 x 128 tiles of a frame and the split of the frames
+// over grid.y.  A plan that does not fit the arguments is refused.
 extern "C" int fvvdp_expand_score2(const float* fine, const float* coarse,
                                    const float* tables, float* partials, float* out,
                                    int F, int H, int W, int h2, int w2, int n_grid,
-                                   int bkg_ch, float y0, float dy, float Ymin,
-                                   float Ymax, float p, float q_s, float q_t,
+                                   int bkg_ch, int vec, int tiles_x, int tiles_y,
+                                   int frames_per_group, int groups, float y0, float inv_dy,
+                                   float Ymin, float Ymax, float p, float q_s, float q_t,
                                    float lc10, float lcorr, float beta,
                                    cudaStream_t stream) {
-    if (n_grid < 1 || n_grid > kMaxGrid || bkg_ch < 0 || bkg_ch > 3)
+    if (n_grid < 1 || n_grid > kMaxGrid || bkg_ch < 0 || bkg_ch > 3 || F < 1 || H < 1 ||
+        W < 1 || h2 != (H + 1) / 2 || w2 != (W + 1) / 2 ||
+        (long long)h2 * w2 > (1LL << 30))
         return static_cast<int>(cudaErrorInvalidValue);
-    const ScoreParams sp{y0, dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta};
-    const dim3 grid = fvvdp::tile_grid(F, H, W);
-    expand_score_kernel<<<grid, kThreads, 0, stream>>>(fine, coarse, tables, partials, H,
-                                                       W, h2, w2, n_grid, bkg_ch, sp);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fvvdp::sum_partials_kernel<<<F, fvvdp::kSumThreads, 0, stream>>>(
-        partials, out, static_cast<int>(grid.x * grid.y));
-    return static_cast<int>(cudaGetLastError());
+    if (tiles_x != (W + kPatchTileW - 1) / kPatchTileW ||
+        tiles_y != (H + kPatchTileH - 1) / kPatchTileH || frames_per_group < 1 ||
+        groups != (F + frames_per_group - 1) / frames_per_group || groups > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (vec && (W % 4 != 0 || reinterpret_cast<std::uintptr_t>(fine) % 16 != 0))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const ScoreArgs a{fine, coarse, tables, partials, F, H, W, h2, w2, n_grid, tiles_x,
+                      frames_per_group, y0, inv_dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta};
+    const int tiles = tiles_x * tiles_y;
+    return vec ? launch_bkg<true>(bkg_ch, a, tiles, groups, out, stream)
+               : launch_bkg<false>(bkg_ch, a, tiles, groups, out, stream);
 }

@@ -6,11 +6,16 @@
 // is the same from run to run.
 //
 // The pixel scorers (band_score.cu, mov_score.cu) also share their first
-// pass: a block of kPixelThreads threads owns that many consecutive pixels
-// and walks its frames; per frame each warp adds its two sums with shuffles
+// pass: a block of kPixelThreads threads owns a run of consecutive pixels
+// (one per thread in band_score.cu; four per thread in mov_score.cu, added
+// in the thread first, so the shuffles below cost a quarter per pixel) and
+// walks its frames; per frame each warp adds its two sums with shuffles
 // into shared memory (frame_warp_sums), and after every kFrameChunk frames
 // the block adds the warps' sums in a fixed order and writes its partials
-// (flush_frame_chunk): one barrier pair per chunk, not per frame.
+// (flush_frame_chunk): one barrier pair per chunk, not per frame.  Where a
+// level has too few blocks to fill the card its frames are split over grid.y
+// (frame_groups; mov_score's wrapper makes the same split for its blocks of
+// 1,024 pixels and hands it to the C entry point).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -8,14 +8,18 @@
 // neighbouring knots from shared memory directly, which gives the same
 // piecewise-linear value up to rounding.
 //
-// No fast-math: log2f(0) = -inf and exp2f(-inf) = 0 carry D(0,0) = 0, which
-// the zero-filled transient channels of the image path rely on.
+// No -use_fast_math: log2(0) = -inf and exp2(-inf) = 0 carry D(0,0) = 0, which
+// the zero-filled transient channels of the image path rely on.  Two sets of
+// transcendentals keep that (PreciseMath, ApproxMath below); a kernel names
+// the one it scores with.
 //
 // Non-finite input: a NaN in, a NaN out.  Every clamp of the kernels is one
-// of the comparison forms below, which keep a NaN operand as torch.clamp and
-// jnp.clip do (and as the TPU kernels do); fminf / fmaxf would drop it and
-// score a broken pixel as a plausible number.  For finite operands the two
-// forms give the same bits.
+// of the forms below: the card's min / max instructions with the NaN
+// qualifier, which return NaN when an operand is NaN, as torch.clamp and
+// jnp.clip do (and as the TPU kernels do).  fminf / fmaxf would drop the NaN
+// and score a broken pixel as a plausible number; a comparison and a select
+// keep it too, but cost two instructions where these cost one.  For finite
+// operands all three give the same bits.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,8 +33,16 @@ __device__ __forceinline__ float k5(int k) {
 }
 
 // x clamped from below / from above / to [lo, hi]; NaN stays NaN.
-__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
-__device__ __forceinline__ float clamp_max(float x, float hi) { return x > hi ? hi : x; }
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+    float y;
+    asm("max.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(x), "f"(lo));
+    return y;
+}
+__device__ __forceinline__ float clamp_max(float x, float hi) {
+    float y;
+    asm("min.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(x), "f"(hi));
+    return y;
+}
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
     return clamp_max(clamp_min(x, lo), hi);
 }
@@ -57,18 +69,55 @@ __device__ __forceinline__ void table_knots(float u, int n, int* i0, int* i1, fl
     *f = u - static_cast<float>(k);
 }
 
+// libdevice's log2f and exp2f: a polynomial of some 20 instructions and a
+// range-checked ex2, within 1 and 2 ulp.
+struct PreciseMath {
+    static __device__ __forceinline__ float log2(float x) { return log2f(x); }
+    static __device__ __forceinline__ float exp2(float x) { return exp2f(x); }
+};
+
+// The special-function unit's own instructions, one each: lg2 with an
+// absolute error under 2^-22, ex2 and sqrt within 2 ulp and 1 ulp, the
+// reciprocal within 1 ulp.  lg2(0) = -inf, ex2(-inf) = 0, sqrt(0) = 0, a NaN
+// stays a NaN; subnormal operands and results count as 0, which moves a
+// D^beta of 1e-38 to 0 and nothing else.  In log2 space 2^-22 is a relative
+// 2e-7 of D, against the scorers' bar of 1e-4 on a frame's sum.
+struct ApproxMath {
+    static __device__ __forceinline__ float log2(float x) {
+        float y;
+        asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+        return y;
+    }
+    static __device__ __forceinline__ float exp2(float x) {
+        float y;
+        asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+        return y;
+    }
+    static __device__ __forceinline__ float sqrt(float x) {
+        float y;
+        asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+        return y;
+    }
+    static __device__ __forceinline__ float rcp(float x) {
+        float y;
+        asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+        return y;
+    }
+};
+
 // D^beta of the mutual masking model in log2 space; T, R are contrasts and
 // ls the per-pixel log2 of the normalisation (log2 sensitivity + log2 of
 // the correction):
 //   log2 D = p*(log2|T-R| + ls) - log2(1 + 2^(q*(log2 min(|T|,|R|) + ls + lc10)))
 //   D^beta = 2^(beta * min(log2 D, log2 1e4))
 // A NaN contrast makes |T-R| NaN, which the last clamp keeps.
+template <class Math = PreciseMath>
 __device__ __forceinline__ float d_beta_log2(float T, float R, float ls, float p,
                                              float q, float lc10, float beta) {
-    const float la = log2f(fabsf(T - R)) + ls;
-    const float lm = log2f(fminf(fabsf(T), fabsf(R))) + (ls + lc10);
-    const float ld = p * la - log2f(1.0f + exp2f(q * lm));
-    return exp2f(beta * clamp_max(ld, kLog2ClampD));
+    const float la = Math::log2(fabsf(T - R)) + ls;
+    const float lm = Math::log2(fminf(fabsf(T), fabsf(R))) + (ls + lc10);
+    const float ld = p * la - Math::log2(1.0f + Math::exp2(q * lm));
+    return Math::exp2(beta * clamp_max(ld, kLog2ClampD));
 }
 
 }  // namespace fvvdp

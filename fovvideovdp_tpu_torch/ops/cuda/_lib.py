@@ -5,8 +5,10 @@ with a plain C interface (``extern "C"``), loaded with ``ctypes``.  Builds
 happen at first use, never at import: all sources are compiled in parallel
 (one ``nvcc`` each) into ``fovvideovdp_tpu_torch/_build/``, under a name
 carrying a hash of ``csrc/*``, so an edited source is rebuilt and an
-unchanged one is reused.  A missing ``nvcc``, a failed build or a non-zero
-return from a kernel's C function raises; nothing falls back.
+unchanged one is reused.  ``nvcc`` runs with ``-Xptxas -v``; what it prints
+(registers, shared memory and spills of every kernel) is kept beside each
+library (:func:`build_log`).  A missing ``nvcc``, a failed build or a
+non-zero return from a kernel's C function raises; nothing falls back.
 
 Every wrapper adds one to its launch counter when it launches its kernel
 (and nowhere else), so a run can show that it went through the kernels.
@@ -27,7 +29,7 @@ SRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
            "band_score", "band_score2", "band_score2_fov", "mov_score")
@@ -42,12 +44,10 @@ _SIGNATURES = {
     "gausspyr_reduce": ("reduce", "fvvdp_gausspyr_reduce",
                         [_P, _P, _I, _I, _I, _P]),
     # fine, coarse, tables, partials, out, F, H, W, h2, w2, n_grid, bkg_ch,
-    # y0, dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta, stream
+    # vec, tiles_x, tiles_y, frames_per_group, groups (the wrapper's launch
+    # plan), y0, 1/dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta, stream
     "expand_score2": ("band_pipeline", "fvvdp_expand_score2",
-                      [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *_SCORE2, _P]),
-    # H, W -> number of fine tiles (the partials' middle dimension)
-    "expand_score2_n_tiles": ("band_pipeline", "fvvdp_expand_score2_n_tiles",
-                              [_I, _I]),
+                      [_P, _P, _P, _P, _P, *[_I] * 12, *_SCORE2, _P]),
     # carry_t, new_t, carry_r, new_r, taps, out, ncarry, nnew, fl, HW, stream
     "temporal_pair": ("temporal", "fvvdp_temporal_pair",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -65,13 +65,12 @@ _SIGNATURES = {
     # band, L, tabs_s, tabs_t, partials, out, F, hw, fs_L, n_grid, scalars, stream
     "band_score2_fov": ("band_score", "fvvdp_band_score2_fov",
                         [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, *_SCORE2, _P]),
-    # n_e, ny, nr, two tables -> 1 if the LUT window is staged in shared memory
-    "mov_score_lut_in_shared": ("mov_score", "fvvdp_mov_score_lut_in_shared",
-                                [_I, _I, _I, _I]),
     # band, L, vd, t_r, gaze, V2s, V2t, partials, out, F, hw, fs_L, n_e, ny, nr,
-    # es0, des, emin, emax, off5, scalars, stream
+    # vec, lut_shared, n_blocks, frames_per_group, groups (the wrapper's launch
+    # plan), es0, 1/des, emin, emax, off5, scalars (with 1/dy for dy), stream
     "mov_score": ("mov_score", "fvvdp_mov_score",
-                  [_P] * 9 + [_I, _I, _L, _I, _I, _I] + [_F] * 5 + [*_SCORE2, _P]),
+                  [_P] * 9 + [_I, _I, _L, _I, _I, _I] + [_I] * 5 + [_F] * 5
+                  + [*_SCORE2, _P]),
 }
 
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}
@@ -123,6 +122,12 @@ def _lib_path(stem: str, tag: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{stem}-{tag}.so")
 
 
+def build_log(stem: str) -> str:
+    """What ``nvcc -Xptxas -v`` printed when ``csrc/<stem>.cu`` was built."""
+    with open(build()[stem] + ".log", encoding="utf-8", errors="replace") as f:
+        return f.read()
+
+
 def build() -> Dict[str, str]:
     """Compile every ``csrc/*.cu`` (in parallel) unless this hash of the
     sources is already built.  Returns {stem: library path}."""
@@ -151,6 +156,8 @@ def build() -> Dict[str, str]:
                 errors.append(f"--- {s}.cu (nvcc exit {proc.returncode}):\n"
                               + out.decode(errors="replace"))
             else:
+                with open(paths[s] + ".log", "wb") as f:
+                    f.write(out)
                 os.replace(tmp, paths[s])
         build_seconds = time.perf_counter() - t0
         if errors:

@@ -9,11 +9,14 @@ Replaces the TPU kernel ``fovvideovdp_tpu/ops/pallas/band_pipeline.py``
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Tuple
+
 import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch.ops.cuda import _lib
-from fovvideovdp_tpu_torch.ops.cuda.band_score import ScoreMeta, band_score_plain
+from fovvideovdp_tpu_torch.ops.cuda.band_score import (ScoreMeta, band_score_plain,
+                                                        frame_groups, inv_f32)
 from fovvideovdp_tpu_torch.ops.pyramid import _expand_contrast_plain, ceildiv
 
 
@@ -26,6 +29,47 @@ def expand_score2_plain(g_fine, g_coarse, tables, meta: ScoreMeta,
         band_score_plain(contrast[:, 0], contrast[:, 1], L, tables[0], meta, meta.q_s),
         band_score_plain(contrast[:, 2], contrast[:, 3], L, tables[1], meta, meta.q_t),
     ], dim=-1)
+
+
+# the kernel's tile of one frame (csrc/expand.cuh: kPatchTileH, kPatchTileW);
+# a thread owns 2 x 4 pixels of it
+TILE_H, TILE_W = 16, 128
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel is launched on one level: the arm (16-byte loads of the
+    fine level, or 4-byte loads each masked), the tiles of a frame (across,
+    down; their product is the middle dimension of the partial sums) and the
+    split of the frames over grid.y."""
+    vec: bool
+    tiles: Tuple[int, int]
+    frames_per_group: int
+    groups: int
+
+    @property
+    def n_tiles(self) -> int:
+        return self.tiles[0] * self.tiles[1]
+
+
+def launch_plan(shape, data_ptr: int) -> LaunchPlan:
+    """The plan for a contiguous fine level of ``shape`` (F, 4, H, W) at
+    address ``data_ptr``.  The vector arm needs every row of every plane on a
+    16-byte boundary: W a multiple of 4 and an aligned first element.  A
+    block walks the frames of its tile: one group of frames unless the
+    level's tiles cannot fill the card."""
+    F, _, H, W = shape
+    tiles = (ceildiv(W, TILE_W), ceildiv(H, TILE_H))
+    return LaunchPlan(W % 4 == 0 and data_ptr % 16 == 0, tiles,
+                      *frame_groups(tiles[0] * tiles[1], F))
+
+
+def plan_for(g_fine: torch.Tensor, g_coarse: torch.Tensor,
+             tables: torch.Tensor) -> LaunchPlan:
+    """The launch plan for these tensors; raises on what the kernel cannot
+    take.  Reads shapes, strides and addresses only, on any device."""
+    if not (g_fine.is_contiguous() and g_coarse.is_contiguous() and tables.is_contiguous()):
+        raise ValueError("expand_score2 needs contiguous tensors")
+    return launch_plan(g_fine.shape, g_fine.data_ptr())
 
 
 def expand_score2(g_fine: torch.Tensor, g_coarse: torch.Tensor,
@@ -57,17 +101,17 @@ def expand_score2(g_fine: torch.Tensor, g_coarse: torch.Tensor,
         return expand_score2_plain(g_fine, g_coarse, tables, meta, bkg_channel)
     if g_fine.device.type != "cuda":
         raise RuntimeError(f"expand_score2: unsupported device {g_fine.device}")
-    if not (g_fine.is_contiguous() and g_coarse.is_contiguous() and tables.is_contiguous()):
-        raise ValueError("expand_score2 needs contiguous tensors")
-    n_tiles = _lib.kernel_fn("expand_score2_n_tiles")(H, W)
-    partials = torch.empty((F, n_tiles, 2), dtype=torch.float32, device=g_fine.device)
+    plan = plan_for(g_fine, g_coarse, tables)
+    partials = torch.empty((F, plan.n_tiles, 2), dtype=torch.float32, device=g_fine.device)
     out = torch.empty((F, 2), dtype=torch.float32, device=g_fine.device)
     fn = _lib.kernel_fn("expand_score2")
     with torch.cuda.device(g_fine.device):
         rc = fn(g_fine.data_ptr(), g_coarse.data_ptr(), tables.data_ptr(),
                 partials.data_ptr(), out.data_ptr(), F, H, W,
                 g_coarse.shape[2], g_coarse.shape[3], tables.shape[1],
-                int(bkg_channel), meta.y0, meta.dy, meta.Ymin, meta.Ymax,
+                int(bkg_channel), int(plan.vec), *plan.tiles, plan.frames_per_group,
+                plan.groups,
+                meta.y0, inv_f32(meta.dy), meta.Ymin, meta.Ymax,
                 meta.p, meta.q_s, meta.q_t, float(np.log2(meta.c10)),
                 float(np.log2(meta.corr)), meta.beta, _lib.stream_ptr(g_fine))
     _lib.check(rc, "expand_score2")

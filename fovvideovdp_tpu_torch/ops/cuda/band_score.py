@@ -11,7 +11,7 @@ of D^beta.  The plain versions mirror ``_band_score_jnp`` (direct form) and
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -125,9 +125,29 @@ def _frame_stride(name: str, label: str, t: torch.Tensor) -> int:
     return t.stride(0) if F > 1 else h * w
 
 
+def inv_f32(x: float) -> float:
+    """1 / x as the kernels that multiply by it receive it: the float32
+    reciprocal of the float32 value."""
+    return float(np.float32(1.0) / np.float32(x))
+
+
 def _scalars(m: ScoreMeta, *q):
     return (m.y0, m.dy, m.Ymin, m.Ymax, m.p, *q, float(np.log2(m.c10)),
             float(np.log2(m.corr)), m.beta)
+
+
+# blocks below which a level's frames are split over grid.y (two blocks per
+# SM of the 132; csrc/partials.cuh: kFillBlocks)
+FILL_BLOCKS = 264
+
+
+def frame_groups(n_blocks: int, F: int) -> Tuple[int, int]:
+    """(frames per group, groups) of a kernel whose blocks walk their frames:
+    one group unless the level's ``n_blocks`` cannot fill the card, then as
+    many as fill it, at most one per frame."""
+    g = 1 if n_blocks >= FILL_BLOCKS else min(F, -(-FILL_BLOCKS // n_blocks))
+    frames_per_group = -(-F // g)
+    return frames_per_group, -(-F // frames_per_group)
 
 
 def _scratch(F: int, hw: int, device):

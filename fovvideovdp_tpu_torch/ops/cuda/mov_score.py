@@ -11,7 +11,7 @@ D^beta for both temporal channels.  The plain version mirrors ``_mov_jnp``
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -82,11 +82,53 @@ def band_score2_mov_plain(band, L_bkg, vd, t_r, gaze_dir, V2s, V2t,
 # wrapper
 # ---------------------------------------------------------------------------
 
+# csrc/mov_score.cu: pixels of a block (256 threads x 4), the largest LUT
+# (both tables) it stages in shared memory
+BLOCK_PIXELS = 1024
+MAX_SHARED_LUT_BYTES = 40 * 1024
+
+
+class LaunchPlan(NamedTuple):
+    """How the kernel is launched on one band: the arm (16-byte loads, or
+    4-byte loads each masked), the pixel blocks (the middle dimension of the
+    partial sums) and the split of the frames over grid.y."""
+    vec: bool
+    n_blocks: int
+    frames_per_group: int
+    groups: int
+
+
 def lut_in_shared(n_e: int, meta: MovMeta) -> bool:
     """Whether the kernel stages a LUT window of these sizes in shared memory
     (else it reads it from global memory)."""
-    return bool(_lib.kernel_fn("mov_score_lut_in_shared")(
-        n_e, meta.ny, meta.nr, int(meta.off5 is None)))
+    tables = 2 if meta.off5 is None else 1
+    return 4 * tables * n_e * meta.ny * meta.nr <= MAX_SHARED_LUT_BYTES
+
+
+def launch_plan(F: int, hw: int, fs_L: int, data_ptrs) -> LaunchPlan:
+    """The plan for F frames of hw pixels.  The vector arm needs every plane
+    it reads four pixels at a time on a 16-byte boundary: hw and L_bkg's frame
+    stride ``fs_L`` multiples of 4, and aligned first elements (``data_ptrs``:
+    the addresses of band, L_bkg, vd and t_r).  One group of frames unless the
+    level's blocks cannot fill the card."""
+    vec = hw % 4 == 0 and fs_L % 4 == 0 and all(p % 16 == 0 for p in data_ptrs)
+    n_blocks = -(-hw // BLOCK_PIXELS)
+    return LaunchPlan(vec, n_blocks, *bs.frame_groups(n_blocks, F))
+
+
+def plan_for(band: torch.Tensor, L_bkg: torch.Tensor, vd: torch.Tensor, t_r: torch.Tensor,
+             gaze_dir: torch.Tensor, tables) -> Tuple[LaunchPlan, int]:
+    """The launch plan for these tensors and L_bkg's frame stride; raises on
+    what the kernel cannot take.  ``tables``: [(label, tensor)] of the LUTs.
+    Reads shapes, strides and addresses only, on any device."""
+    name = "band_score2_mov"
+    for label, t in [("band", band), ("vd", vd), ("t_r", t_r), ("gaze_dir", gaze_dir)] + tables:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous {label}")
+    fs_L = bs._frame_stride(name, "L_bkg", L_bkg)
+    F, _, h, w = band.shape
+    return launch_plan(F, h * w, fs_L,
+                       [t.data_ptr() for t in (band, L_bkg, vd, t_r)]), fs_L
 
 
 def band_score2_mov(band: torch.Tensor, L_bkg: torch.Tensor, vd: torch.Tensor,
@@ -119,20 +161,22 @@ def band_score2_mov(band: torch.Tensor, L_bkg: torch.Tensor, vd: torch.Tensor,
                            ("gaze_dir", gaze_dir)] + tables)
     if bs._on_cpu(name, band):
         return band_score2_mov_plain(band, L_bkg, vd, t_r, gaze_dir, V2s, V2t, meta)
-    for label, t in [("band", band), ("vd", vd), ("t_r", t_r), ("gaze_dir", gaze_dir)] + tables:
-        if not t.is_contiguous():
-            raise ValueError(f"{name} needs a contiguous {label}")
-    fs_L = bs._frame_stride(name, "L_bkg", L_bkg)
-    partials, out = bs._scratch(F, h * w, band.device)    # the pixel scorers share it
+    plan, fs_L = plan_for(band, L_bkg, vd, t_r, gaze_dir, tables)
+    partials = torch.empty((F, plan.n_blocks, 2), dtype=torch.float32, device=band.device)
+    out = torch.empty((F, 2), dtype=torch.float32, device=band.device)
+    m = meta.score
     fn = _lib.kernel_fn("mov_score")
     with torch.cuda.device(band.device):
         rc = fn(band.data_ptr(), L_bkg.data_ptr(), vd.data_ptr(), t_r.data_ptr(),
                 gaze_dir.data_ptr(), V2s.data_ptr(),
                 None if V2t is None else V2t.data_ptr(),
                 partials.data_ptr(), out.data_ptr(), F, h * w, fs_L,
-                V2s.shape[0], meta.ny, meta.nr, meta.es0, meta.des, meta.emin, meta.emax,
+                V2s.shape[0], meta.ny, meta.nr, int(plan.vec),
+                int(lut_in_shared(V2s.shape[0], meta)), plan.n_blocks,
+                plan.frames_per_group, plan.groups,
+                meta.es0, bs.inv_f32(meta.des), meta.emin, meta.emax,
                 0.0 if meta.off5 is None else meta.off5,
-                *bs._scalars(meta.score, meta.score.q_s, meta.score.q_t),
+                *bs._scalars(m._replace(dy=bs.inv_f32(m.dy)), m.q_s, m.q_t),
                 _lib.stream_ptr(band))
     _lib.check(rc, "mov_score")
     _lib.count_launch("mov_score")

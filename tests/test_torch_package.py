@@ -229,19 +229,73 @@ def test_reduce_kernel_matches_plain(cuda, shape):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+def _offset_by_one_float(t):
+    """The same values in storage that starts 4 bytes past a 16-byte
+    boundary: contiguous, but no 16-byte load of it is aligned."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("hw", [(96, 144), (67, 131), (160, 384), (17, 30), (2, 2)])
+@pytest.mark.parametrize("hw", [(96, 144), (67, 131), (160, 384), (17, 30), (2, 2),
+                                (135, 240), (33, 516), (16, 129)])
 def test_expand_score2_kernel_matches_plain(cuda, hw):
+    """Both arms: 16-byte loads where W % 4 == 0 (whole tiles, ragged tiles,
+    an odd H), 4-byte loads elsewhere."""
     from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
     H, W = hw
     core = fvvdp(device=cuda)._get_core(max(W, 16), max(H, 16))
     fine = _rand((2, 4, H, W), 2).to(cuda)
     coarse = _rand((2, 4, -(-H // 2), -(-W // 2)), 3).to(cuda)
+    assert bp.plan_for(fine, coarse, core._score_tables[0]).vec == (W % 4 == 0)
     for tables, meta in zip(core._score_tables, core._meta):
         got = bp.expand_score2(fine, coarse, tables, meta).cpu().double()
         want = bp.expand_score2_plain(fine, coarse, tables, meta).cpu().double()
         rel = ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
         assert rel < 1e-4, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(96, 144), (135, 240)])
+def test_expand_score2_unaligned_fine_takes_the_scalar_arm(cuda, hw):
+    """A fine level whose first element is not on a 16-byte boundary: the
+    scalar arm, with the vector arm's sums (the arms differ in their loads
+    only) and the image path's exact zero."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
+    H, W = hw
+    core = fvvdp(device=cuda)._get_core(W, H)
+    tables, meta = core._score_tables[0], core._meta[0]
+    fine = _rand((2, 4, H, W), 2).to(cuda)
+    fine[:, 2:] = 0.0
+    coarse = _rand((2, 4, -(-H // 2), -(-W // 2)), 3).to(cuda)
+    coarse[:, 2:] = 0.0
+    shifted = _offset_by_one_float(fine)
+    assert bp.plan_for(fine, coarse, tables).vec
+    assert not bp.plan_for(shifted, coarse, tables).vec
+    cuda_ops.reset_launch_counts()
+    got = bp.expand_score2(shifted, coarse, tables, meta)
+    assert cuda_ops.launch_counts()["expand_score2"] == 1
+    assert torch.equal(got, bp.expand_score2(fine, coarse, tables, meta))
+    assert bool((got[:, 1] == 0.0).all())
+    assert _rel(got, bp.expand_score2_plain(fine, coarse, tables, meta)) < 1e-4
+
+
+@pytest.mark.gpu
+def test_expand_score2_keeps_a_nan_on_the_card(cuda):
+    from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
+    core = fvvdp(device=cuda)._get_core(144, 96)
+    tables, meta = core._score_tables[0], core._meta[0]
+    fine = _rand((3, 4, 96, 144), 2).to(cuda)
+    coarse = _rand((3, 4, 48, 72), 3).to(cuda)
+    fine[1, 0, 5, 7] = float("nan")
+    nan_at = torch.zeros((3, 2), dtype=torch.bool)
+    nan_at[1, 0] = True
+    for got in (bp.expand_score2(fine, coarse, tables, meta),
+                bp.expand_score2_plain(fine, coarse, tables, meta)):
+        assert torch.equal(torch.isnan(got).cpu(), nan_at), got
 
 
 @pytest.mark.gpu
@@ -434,21 +488,56 @@ def _mov_inputs(F, h, w, n_e, ny, nr, two, device, seed=8):
 @pytest.mark.parametrize("two", [True, False], ids=["two_tables", "off5"])
 @pytest.mark.parametrize("lut", [(32, 19, 4), (32, 32, 32), (5, 1, 1)],
                          ids=["shared", "global", "tiny"])
-@pytest.mark.parametrize("Fhw", [(3, 64, 256), (40, 9, 13), (1, 37, 200), (33, 68, 120)])
+@pytest.mark.parametrize("Fhw", [(3, 64, 256), (40, 9, 13), (1, 37, 200), (33, 68, 120),
+                                 (2, 67, 131), (1, 1, 1)])
 def test_mov_score_kernel_matches_plain(cuda, Fhw, lut, two):
     """Every instance of mov_score (two tables or one with an offset; the LUT
-    in shared or in global memory) within 2e-4 relative of the plain
-    version, on whole planes, ragged ones, an image and more than one chunk
-    of frames."""
+    in shared or in global memory; 16-byte loads where h * w is a multiple of
+    4, else 4-byte loads) within 2e-4 relative of the plain version, on whole
+    planes, ragged ones, an image and more than one chunk of frames."""
     from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
     args = _mov_inputs(*Fhw, *lut, two, cuda)
     assert ms.lut_in_shared(lut[0], args[-1]) == (lut != (32, 32, 32))
+    assert ms.plan_for(*args[:5], [("V2s", args[5])])[0].vec == (Fhw[1] * Fhw[2] % 4 == 0)
     cuda_ops.reset_launch_counts()
     got = ms.band_score2_mov(*args)
     assert cuda_ops.launch_counts()["mov_score"] == 1
     want = ms.band_score2_mov_plain(*args)
     assert got.shape == (Fhw[0], 2) and bool(torch.isfinite(got).all())
     assert _rel(got, want) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("two", [True, False], ids=["two_tables", "off5"])
+@pytest.mark.parametrize("lut", [(32, 19, 4), (32, 32, 32)], ids=["shared", "global"])
+@pytest.mark.parametrize("view", ["L_offset", "L_stride", "band_offset", "L_channel"])
+def test_mov_score_views_choose_the_arm(cuda, view, lut, two):
+    """Views the vector arm cannot load 16 bytes at a time take the scalar
+    arm and give the vector arm's sums (the arms differ in their loads
+    only); a channel of a (F, C, h, w) stack stays on the vector arm."""
+    from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
+    args = _mov_inputs(5, 36, 200, *lut, two, cuda)
+    band, L = args[0], args[1]
+    F, h, w = L.shape
+    want = ms.band_score2_mov(*args)
+    assert ms.plan_for(band, L, *args[2:5], [("V2s", args[5])])[0].vec
+    if view == "L_offset":
+        args[1] = _offset_by_one_float(L)
+    elif view == "L_stride":
+        rows = torch.empty((F, h * w + 2), dtype=L.dtype, device=cuda)
+        args[1] = rows[:, :h * w].view(F, h, w)
+        args[1].copy_(L)
+    elif view == "band_offset":
+        args[0] = _offset_by_one_float(band)
+    else:
+        stack = torch.zeros((F, 3, h, w), dtype=L.dtype, device=cuda)
+        stack[:, 1] = L
+        args[1] = stack[:, 1]
+    vec = ms.plan_for(*args[:5], [("V2s", args[5])])[0].vec
+    assert vec == (view == "L_channel")
+    got = ms.band_score2_mov(*args)
+    assert torch.equal(got, want)
+    assert _rel(got, ms.band_score2_mov_plain(*args)) < 2e-4
 
 
 @pytest.mark.gpu
