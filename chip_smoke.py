@@ -12,10 +12,11 @@ Phases, each raising on failure:
      its bound and, where one exists, a library call computing the same
      function; mov_score with a sweeping gaze on two tables, on one table
      and an offset, on an image, and with the whole LUT in global memory;
-     expand_score2 and mov_score on both arms (16-byte loads at the 4K
-     levels; 4-byte loads on an odd width, an odd pixel count and views
-     that start off a 16-byte boundary), with the registers nvcc -Xptxas -v
-     reported and the SASS instructions per pixel(-frame) from cuobjdump;
+     expand_score2, mov_score and the three band scorers on both arms
+     (16-byte loads at the 4K levels; 4-byte loads on an odd width, an odd
+     pixel count and views that start off a 16-byte boundary), with the
+     registers nvcc -Xptxas -v reported and the SASS instructions per
+     pixel(-frame) from cuobjdump;
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
@@ -53,10 +54,12 @@ another:
     python3 chip_smoke.py --time-kernels [--package-root DIR]
 
 builds the kernels of the package under DIR (default: beside this script)
-and times expand_score2 and every instance of mov_score at the 4K levels of
-one 32-frame block, nothing else; it prints one JSON line.  DIR may hold an
-earlier commit's package (git archive) or a copy with one edit.
+and times expand_score2, every instance of mov_score and the three band
+scorers at the 4K levels of one 32-frame block, nothing else; it prints one
+JSON line.  DIR may hold an earlier commit's package (git archive) or a
+copy with one edit.
 """
+import functools
 import json
 import os
 import re
@@ -376,49 +379,78 @@ def check_expand_contrast(gpyr, n_levels, cases):
     return levels
 
 
+def band_runs(bb, band, L, core_pc, core_2, ts, tt, metaf):
+    """(kernel, note, kernel call, plain call, the planes the arm is chosen
+    from, per-pixel knots, bytes, transcendentals, bar) of each band scorer
+    on one band: band_score on each channel with the per-channel LUT core's
+    tables, band_score2 with the default core's shared-grid tables and
+    band_score2_fov with the fixation point's per-pixel tables ts, tt."""
+    Fr, _, h, w = band.shape
+    px = Fr * h * w
+    runs = []
+    for cc in range(2):
+        T, R = band[:, 2 * cc], band[:, 2 * cc + 1]
+        table, meta = core_pc._channel_tables[bb][cc], core_pc._channel_meta[bb][cc]
+        q = (meta.q_s, meta.q_t)[cc]
+        runs.append(("band_score", f"channel {cc}, n = {table.shape[0]}",
+                     lambda T=T, R=R, t=table, m=meta, q=q: bs.band_score(T, R, L, t, m, q),
+                     lambda T=T, R=R, t=table, m=meta, q=q: bs.band_score_plain(T, R, L, t, m, q),
+                     (("T", T), ("R", R), ("L_bkg", L)), 0,
+                     4 * (3 * px + table.numel() + Fr), SFU_PER_PIXEL_1CH * px, 1e-4))
+    tabs2, meta2 = core_2._score_tables[bb], core_2._meta[bb]
+    planes = (("band", band), ("L_bkg", L))
+    runs.append(("band_score2", f"n = {tabs2.shape[1]}",
+                 lambda: bs.band_score2(band, L, tabs2, meta2),
+                 lambda: bs.band_score2_plain(band, L, tabs2, meta2), planes, 0,
+                 4 * (5 * px + tabs2.numel() + 2 * Fr), SFU_PER_PIXEL * px, 1e-4))
+    runs.append(("band_score2_fov", f"n = {ts.shape[0]}",
+                 lambda: bs.band_score2_fov(band, L, ts, tt, metaf),
+                 lambda: bs.band_score2_fov_plain(band, L, ts, tt, metaf), planes, ts.shape[0],
+                 4 * (5 * px + ts.numel() + tt.numel() + 2 * Fr), SFU_PER_PIXEL * px, 2e-4))
+    return runs
+
+
 def check_band_scores(levels, core_pc, core_2, core_fov, fov_tabs, sfu_rate, cases):
     """band_score (per-channel LUT core's tables, both channels), band_score2
     (the default core's shared-grid tables) and band_score2_fov (the
-    fixation point's per-pixel tables) at every level of one block."""
+    fixation point's per-pixel tables) at every level of one block, on the
+    vector arm; then level 2 on the scalar arm: cut to 539 x 959 (an odd
+    pixel count), and whole with L_bkg stored 4 bytes off a 16-byte
+    boundary."""
     for bb, (band, L_bkg) in enumerate(levels):
         L = L_bkg[:, 0]
-        Fr, _, h, w = band.shape
-        px = Fr * h * w
-        runs = []
-        for cc in range(2):
-            T, R = band[:, 2 * cc], band[:, 2 * cc + 1]
-            table, meta = core_pc._channel_tables[bb][cc], core_pc._channel_meta[bb][cc]
-            q = (meta.q_s, meta.q_t)[cc]
-            runs.append(("band_score", f"channel {cc}, n = {table.shape[0]}",
-                         lambda T=T, R=R, t=table, m=meta, q=q: bs.band_score(T, R, L, t, m, q),
-                         lambda T=T, R=R, t=table, m=meta, q=q: bs.band_score_plain(T, R, L, t, m, q),
-                         4 * (3 * px + table.numel() + Fr), SFU_PER_PIXEL_1CH * px, 1e-4))
-        tabs2, meta2 = core_2._score_tables[bb], core_2._meta[bb]
-        runs.append(("band_score2", f"n = {tabs2.shape[1]}",
-                     lambda: bs.band_score2(band, L, tabs2, meta2),
-                     lambda: bs.band_score2_plain(band, L, tabs2, meta2),
-                     4 * (5 * px + tabs2.numel() + 2 * Fr), SFU_PER_PIXEL * px, 1e-4))
         ts, tt = fov_tabs[bb]
         metaf = core_fov._fov_meta[bb]
-        runs.append(("band_score2_fov", f"n = {ts.shape[0]}",
-                     lambda: bs.band_score2_fov(band, L, ts, tt, metaf),
-                     lambda: bs.band_score2_fov_plain(band, L, ts, tt, metaf),
-                     4 * (5 * px + ts.numel() + tt.numel() + 2 * Fr), SFU_PER_PIXEL * px, 2e-4))
-        for name, note, kernel, plain, nbytes, sfu, tol in runs:
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            rel = rel_err(got, want)
-            err = (got.double() - want.double()).abs().max().item()
-            del got, want
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain, runs=3, warmup=1)
-            b_ms, b_by = bound(nbytes, sfu, sfu_rate)
-            add_row(cases, dict(
-                case=name, shape=[Fr, h, w], note=note, max_abs_err=err, max_rel_err=rel,
-                tolerance=f"relative {tol:g} on per-frame sums", ok=rel <= tol,
-                launches_per_call=1, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by,
-                main_path=True), f"level {bb} ({note})")
+        variants = [("", True, band, L, ts, tt)]
+        if bb == 2:
+            cut = [t[..., :-1, :-1].contiguous() for t in (band, L, ts, tt)]
+            variants += [("odd pixel count, ", False, *cut),
+                         ("L_bkg off a 16-byte boundary, ", False, band,
+                          offset_by_one_float(L), ts, tt)]
+        for prefix, vec_arm, b, l, t_s, t_t in variants:
+            for name, note, kernel, plain, planes, n_pix, nbytes, sfu, tol in band_runs(
+                    bb, b, l, core_pc, core_2, t_s, t_t, metaf):
+                plan = bs.plan_for(name, planes, n_pix)[0]
+                if plan.vec != vec_arm:
+                    raise AssertionError(f"{name} ({prefix}{note}) at level {bb}: vector arm "
+                                         f"is {plan.vec}")
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                rel = rel_err(got, want)
+                err = (got.double() - want.double()).abs().max().item()
+                ok = rel <= tol and bool(torch.isfinite(got).all())
+                del got, want
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain, runs=3, warmup=1)
+                b_ms, b_by = bound(nbytes, sfu, sfu_rate)
+                add_row(cases, dict(
+                    case=name, shape=[b.shape[0]] + list(b.shape[-2:]),
+                    arm="vector" if plan.vec else "scalar", note=prefix + note,
+                    block_pixels=plan.block_pixels, max_abs_err=err, max_rel_err=rel,
+                    tolerance=f"relative {tol:g} on per-frame sums", ok=ok,
+                    launches_per_call=1, ms=ms, plain_ms=plain_ms, library_ms=None,
+                    bound_ms=b_ms, bound_by=b_by, main_path=vec_arm),
+                    f"level {bb} ({prefix}{note})")
 
 
 def block_gaze(core_fov, n_frames):
@@ -541,9 +573,14 @@ def cut_luts(fv):
 # the kernels whose rows carry registers and SASS counts: library stem, name
 # of the __global__ function, template arguments of the main path's instance
 # (expand_score2: vector arm, background channel 1; mov_score: two tables,
-# LUT in shared memory, vector arm)
-REDESIGNED = {"expand_score2": ("band_pipeline", "expand_score_kernel", "11"),
-              "mov_score": ("mov_score", "mov_score_kernel", "111")}
+# LUT in shared memory, vector arm; the band scorers: channels, per-pixel
+# tables, vector arm), the leading template arguments of the instances that
+# belong to the kernel, and its exp2 per pixel(-frame)
+REDESIGNED = {"expand_score2": ("band_pipeline", "expand_score_kernel", "11", "", 4),
+              "mov_score": ("mov_score", "mov_score_kernel", "111", "", 4),
+              "band_score": ("band_score", "band_score_kernel", "101", "10", 2),
+              "band_score2": ("band_score", "band_score_kernel", "201", "20", 4),
+              "band_score2_fov": ("band_score", "band_score_kernel", "211", "21", 4)}
 
 
 def _instance(symbol, function):
@@ -554,6 +591,7 @@ def _instance(symbol, function):
     return None if m is None else "".join(re.findall(r"L[bi]([0-9])E", m.group(1)))
 
 
+@functools.lru_cache(maxsize=None)
 def ptxas_usage(stem, function):
     """{instance: (registers, spill bytes)} from what nvcc -Xptxas -v printed."""
     usage, cur, spills = {}, None, 0
@@ -570,13 +608,14 @@ def ptxas_usage(stem, function):
     return usage
 
 
+@functools.lru_cache(maxsize=None)
 def sass_counts(stem, function):
     """{instance: counts} from cuobjdump -sass of the built library, or None
     where the toolkit has no cuobjdump: every instruction of the kernel but
     the padding, those of its longest loop (the span of the backward branch
-    that jumps furthest), and the ex2 instructions in each.  The scorers run
-    four ex2 per pixel(-frame), so a count over a quarter of its ex2 is the
-    instructions per pixel(-frame)."""
+    that jumps furthest), and the ex2 instructions in each.  A scorer runs a
+    known number of ex2 per pixel(-frame) (REDESIGNED), so a count over its
+    ex2 times that number is the instructions per pixel(-frame)."""
     tool = os.path.join(os.path.dirname(_lib.find_nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
@@ -615,8 +654,9 @@ def sass_counts(stem, function):
 def build_facts(name):
     """Registers, spills and SASS instructions per pixel(-frame) of every
     instance of one redesigned kernel, the main path's instance first."""
-    stem, function, main_instance = REDESIGNED[name]
-    regs, sass = ptxas_usage(stem, function), sass_counts(stem, function)
+    stem, function, main_instance, family, ex2_per_px = REDESIGNED[name]
+    regs = {i: r for i, r in ptxas_usage(stem, function).items() if i.startswith(family)}
+    sass = sass_counts(stem, function)
     if main_instance not in regs:
         raise AssertionError(f"{name}: nvcc -Xptxas -v reported no instance "
                              f"{main_instance} of {function}: {sorted(regs)}")
@@ -625,8 +665,9 @@ def build_facts(name):
         per = "not measured"
         if sass is not None and inst in sass:
             c = sass[inst]
-            n, ex2 = (c["loop"], c["loop_ex2"]) if c["loop_ex2"] >= 4 else (c["total"], c["total_ex2"])
-            per = dict(c, per_pixel=4.0 * n / ex2 if ex2 else None)
+            n, ex2 = ((c["loop"], c["loop_ex2"]) if c["loop_ex2"] >= ex2_per_px
+                      else (c["total"], c["total_ex2"]))
+            per = dict(c, per_pixel=ex2_per_px * n / ex2 if ex2 else None)
         facts[inst] = dict(registers=regs[inst][0], spill_bytes=regs[inst][1], sass=per)
     return main_instance, facts
 
@@ -686,9 +727,12 @@ def first_block(fv, dev):
 
 
 def time_kernels(dev):
-    """--time-kernels: expand_score2 and every instance of mov_score at the
-    levels of one 4K block, through the wrappers of whatever package was
-    imported, timed as phase 3 times them.  One JSON line."""
+    """--time-kernels: expand_score2, every instance of mov_score and the
+    three band scorers (band_score on each channel, band_score2,
+    band_score2_fov with a centre gaze's tables) at the levels of one 4K
+    block, through the wrappers of whatever package was imported, timed as
+    phase 3 times them, with a checksum per kernel and level.  One JSON
+    line."""
     smi = nvidia_smi("name,power.limit")
     _lib.build()
     fv = fvt.fvvdp(display_name="standard_4k")
@@ -699,7 +743,8 @@ def time_kernels(dev):
     for _ in range(core.plan.height):
         gpyr.append(red.gausspyr_reduce(gpyr[-1]))
     out = dict(phase="time_kernels", package=os.path.dirname(os.path.abspath(fvt.__file__)),
-               nvidia_smi=smi, block_frames=B, expand_score2=[], mov_score={})
+               nvidia_smi=smi, block_frames=B, expand_score2=[], mov_score={},
+               band_score={}, band_score2=[], band_score2_fov=[])
     sums = []
     for bb in range(core.plan.height):
         args = (gpyr[bb], gpyr[bb + 1], core._score_tables[bb], core._meta[bb])
@@ -709,17 +754,34 @@ def time_kernels(dev):
     out["expand_score2_checksum"] = sums
     core_fov = fvt.fvvdp(display_name="standard_4k", foveated=True)._get_core(W, H)
     gaze_dir = block_gaze(core_fov, B)
-    sums = []
+    fov_tabs = core_fov.fov_tables((float(W // 2), float(H // 2)))
+    fv_pc = fvt.fvvdp(display_name="standard_4k")
+    fv_pc.load_state(fv_pc.parameters, cut_luts(fv_pc))
+    core_pc = fv_pc._get_core(W, H)
+    sums = {}
     for bb in range(core.plan.height):
         band, L_bkg = ec.expand_contrast(gpyr[bb], gpyr[bb + 1])
         for note, _, args in mov_instances(core_fov, bb, band, L_bkg, gaze_dir):
             if note == "two tables":
-                sums.append(ms.band_score2_mov(*args).double().sum().item())
+                sums.setdefault("mov_score", []).append(
+                    ms.band_score2_mov(*args).double().sum().item())
             out["mov_score"].setdefault(note, []).append(
                 time_ms(lambda: ms.band_score2_mov(*args)))
+        for name, note, kernel, *_ in band_runs(bb, band, L_bkg[:, 0], core_pc, core,
+                                                *fov_tabs[bb], core_fov._fov_meta[bb]):
+            sums.setdefault(name, []).append(kernel().double().sum().item())
+            t = time_ms(kernel)
+            if name == "band_score":
+                out[name].setdefault(note.split(",")[0], []).append(t)
+            else:
+                out[name].append(t)
         del band, L_bkg
     out["mov_score_sum_ms"] = {k: sum(v) for k, v in out["mov_score"].items()}
-    out["mov_score_checksum"] = sums
+    out["band_score_sum_ms"] = sum(sum(v) for v in out["band_score"].values())
+    out["band_score2_sum_ms"] = sum(out["band_score2"])
+    out["band_score2_fov_sum_ms"] = sum(out["band_score2_fov"])
+    for name, v in sums.items():
+        out[f"{name}_checksum"] = v
     emit(out)
     return 0
 

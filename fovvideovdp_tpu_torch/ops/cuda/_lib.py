@@ -35,7 +35,8 @@ KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast
            "band_score", "band_score2", "band_score2_fov", "mov_score")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# y0, dy, Ymin, Ymax, p, then the masking exponents and log2 scalars up to beta
+# y0, 1/dy, Ymin, Ymax, p, then the masking exponents and log2 scalars up to beta
+# (band_score._kernel_scalars)
 _SCORE1 = [_F] * 9      # ..., q, lc10, lcorr, beta
 _SCORE2 = [_F] * 10     # ..., q_s, q_t, lc10, lcorr, beta
 # C signature of each library's entry point: (library stem, symbol, argtypes)
@@ -45,7 +46,7 @@ _SIGNATURES = {
                         [_P, _P, _I, _I, _I, _P]),
     # fine, coarse, tables, partials, out, F, H, W, h2, w2, n_grid, bkg_ch,
     # vec, tiles_x, tiles_y, frames_per_group, groups (the wrapper's launch
-    # plan), y0, 1/dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta, stream
+    # plan), scalars, stream
     "expand_score2": ("band_pipeline", "fvvdp_expand_score2",
                       [_P, _P, _P, _P, _P, *[_I] * 12, *_SCORE2, _P]),
     # carry_t, new_t, carry_r, new_r, taps, out, ncarry, nnew, fl, HW, stream
@@ -54,20 +55,21 @@ _SIGNATURES = {
     # fine, coarse, contrast, lbkg, F, C, H, W, h2, w2, bkg_ch, stream
     "expand_contrast": ("expand_contrast", "fvvdp_expand_contrast",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # hw -> number of pixel blocks (the partials' middle dimension)
-    "band_score_n_blocks": ("band_score", "fvvdp_band_score_n_blocks", [_I]),
-    # T, R, L, table, partials, out, F, hw, fs_T, fs_R, fs_L, n_grid, scalars, stream
+    # T, R, L, table, partials, out, F, hw, fs_T, fs_R, fs_L, n_grid, vec,
+    # block_pixels, n_blocks, frames_per_group, groups (the wrapper's launch
+    # plan), scalars, stream
     "band_score": ("band_score", "fvvdp_band_score",
-                   [_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, *_SCORE1, _P]),
-    # band, L, tables, partials, out, F, hw, fs_L, n_grid, scalars, stream
+                   [_P] * 6 + [_I, _I, _L, _L, _L] + [_I] * 6 + [*_SCORE1, _P]),
+    # band, L, tables, partials, out, F, hw, fs_L, n_grid, launch plan, scalars, stream
     "band_score2": ("band_score", "fvvdp_band_score2",
-                    [_P, _P, _P, _P, _P, _I, _I, _L, _I, *_SCORE2, _P]),
-    # band, L, tabs_s, tabs_t, partials, out, F, hw, fs_L, n_grid, scalars, stream
+                    [_P] * 5 + [_I, _I, _L] + [_I] * 6 + [*_SCORE2, _P]),
+    # band, L, tabs_s, tabs_t, partials, out, F, hw, fs_L, n_grid, launch plan,
+    # scalars, stream
     "band_score2_fov": ("band_score", "fvvdp_band_score2_fov",
-                        [_P, _P, _P, _P, _P, _P, _I, _I, _L, _I, *_SCORE2, _P]),
+                        [_P] * 6 + [_I, _I, _L] + [_I] * 6 + [*_SCORE2, _P]),
     # band, L, vd, t_r, gaze, V2s, V2t, partials, out, F, hw, fs_L, n_e, ny, nr,
     # vec, lut_shared, n_blocks, frames_per_group, groups (the wrapper's launch
-    # plan), es0, 1/des, emin, emax, off5, scalars (with 1/dy for dy), stream
+    # plan), es0, 1/des, emin, emax, off5, scalars, stream
     "mov_score": ("mov_score", "fvvdp_mov_score",
                   [_P] * 9 + [_I, _I, _L, _I, _I, _I] + [_I] * 5 + [_F] * 5
                   + [*_SCORE2, _P]),

@@ -11,12 +11,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch.ops.cuda import _lib
-from fovvideovdp_tpu_torch.ops.cuda.band_score import (ScoreMeta, band_score_plain,
-                                                        frame_groups, inv_f32)
+from fovvideovdp_tpu_torch.ops.cuda.band_score import (ScoreMeta, _kernel_scalars,
+                                                        band_score_plain, frame_groups)
 from fovvideovdp_tpu_torch.ops.pyramid import _expand_contrast_plain, ceildiv
 
 
@@ -111,9 +110,7 @@ def expand_score2(g_fine: torch.Tensor, g_coarse: torch.Tensor,
                 g_coarse.shape[2], g_coarse.shape[3], tables.shape[1],
                 int(bkg_channel), int(plan.vec), *plan.tiles, plan.frames_per_group,
                 plan.groups,
-                meta.y0, inv_f32(meta.dy), meta.Ymin, meta.Ymax,
-                meta.p, meta.q_s, meta.q_t, float(np.log2(meta.c10)),
-                float(np.log2(meta.corr)), meta.beta, _lib.stream_ptr(g_fine))
+                *_kernel_scalars(meta, meta.q_s, meta.q_t), _lib.stream_ptr(g_fine))
     _lib.check(rc, "expand_score2")
     _lib.count_launch("expand_score2")
     return out

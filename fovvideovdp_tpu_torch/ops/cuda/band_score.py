@@ -11,6 +11,7 @@ of D^beta.  The plain versions mirror ``_band_score_jnp`` (direct form) and
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -117,12 +118,18 @@ def _check_band(name: str, band, L_bkg) -> None:
 
 def _frame_stride(name: str, label: str, t: torch.Tensor) -> int:
     """Frame stride of a (F, h, w) tensor whose planes are contiguous (a
-    channel of a (F, C, h, w) stack is such a view)."""
+    channel of a (F, C, h, w) stack is such a view), or of a contiguous
+    (F, C, h, w) stack, whose C planes lie hw apart.  Reads strides only."""
+    if t.dim() == 4:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} needs a contiguous {label}")
+        return t.shape[1] * t.shape[2] * t.shape[3]
     F, h, w = t.shape
-    if not t[0].is_contiguous() or (F > 1 and t.stride(0) < h * w):
+    sf, sh, sw = t.stride()
+    if (w > 1 and sw != 1) or (h > 1 and sh != w) or (F > 1 and sf < h * w):
         raise ValueError(f"{name}: {label} needs contiguous (h, w) planes, got strides "
-                         f"{t.stride()} for shape {tuple(t.shape)}")
-    return t.stride(0) if F > 1 else h * w
+                         f"{(sf, sh, sw)} for shape {tuple(t.shape)}")
+    return sf if F > 1 else h * w
 
 
 def inv_f32(x: float) -> float:
@@ -132,12 +139,16 @@ def inv_f32(x: float) -> float:
 
 
 def _scalars(m: ScoreMeta, *q):
-    return (m.y0, m.dy, m.Ymin, m.Ymax, m.p, *q, float(np.log2(m.c10)),
-            float(np.log2(m.corr)), m.beta)
+    return (m.y0, m.dy, m.Ymin, m.Ymax, m.p, *q, math.log2(m.c10), math.log2(m.corr), m.beta)
+
+
+def _kernel_scalars(m: ScoreMeta, *q):
+    """The scalars as the C entry points take them: 1 / dy in place of dy."""
+    return _scalars(m._replace(dy=inv_f32(m.dy)), *q)
 
 
 # blocks below which a level's frames are split over grid.y (two blocks per
-# SM of the 132; csrc/partials.cuh: kFillBlocks)
+# SM of the 132)
 FILL_BLOCKS = 264
 
 
@@ -150,10 +161,77 @@ def frame_groups(n_blocks: int, F: int) -> Tuple[int, int]:
     return frames_per_group, -(-F // frames_per_group)
 
 
-def _scratch(F: int, hw: int, device):
-    """Partials (F, pixel blocks, 2) and output (F, 2) of a pixel scorer."""
-    n_blocks = _lib.kernel_fn("band_score_n_blocks")(hw)
-    return (torch.empty((F, n_blocks, 2), dtype=torch.float32, device=device),
+# csrc/band_score.cu: pixels of a block of the 1-D-table instances (256
+# threads x 4), the blocks the per-pixel instance may take, the most knots
+BLOCK_PIXELS = 1024
+TABLE_BLOCK_PIXELS = (1024, 512, 256, 128)
+MAX_GRID = 64
+SM_SHARED_BYTES = 233472         # shared memory of one H100 SM, 228 KB
+MAX_BLOCK_SHARED_BYTES = 232448  # the most one block may take, 227 KB
+# a block's shared memory besides the per-pixel tables: the frame sums
+# (2 KB), the 1-D tables (512 B) and what the card reserves per block (1 KB)
+BLOCK_SHARED_OVERHEAD = 2048 + 512 + 1024
+
+
+def pixel_table_bytes(n: int, block_pixels: int) -> int:
+    """Shared memory of a block's per-pixel tables: two channels, n knots."""
+    return 8 * n * block_pixels
+
+
+def table_block_pixels(n: int) -> int:
+    """Pixels of a block of band_score2_fov for tables of n knots: the most
+    of which two blocks fit on an SM, so that one block's table copy overlaps
+    the other's frames (n = 19: 512 pixels, 76 KB of tables)."""
+    if not 1 <= n <= MAX_GRID:
+        raise ValueError(f"band_score2_fov: tables of {n} knots, the kernel takes 1..{MAX_GRID}")
+    return next(P for P in TABLE_BLOCK_PIXELS
+                if 2 * (pixel_table_bytes(n, P) + BLOCK_SHARED_OVERHEAD) <= SM_SHARED_BYTES)
+
+
+class LaunchPlan(NamedTuple):
+    """How a band scorer is launched on one band: the arm (16-byte loads, or
+    4-byte loads each masked), the pixels of a block, the blocks of the plane
+    (the middle dimension of the partial sums) and the split of the frames
+    over grid.y."""
+    vec: bool
+    block_pixels: int
+    n_blocks: int
+    frames_per_group: int
+    groups: int
+
+
+def launch_plan(F: int, hw: int, frame_strides, data_ptrs, n_pixel_tables: int = 0
+                ) -> LaunchPlan:
+    """The plan for F frames of hw pixels.  The vector arm needs every plane
+    it reads four pixels at a time on a 16-byte boundary: hw and each
+    plane's frame stride (``frame_strides``, in floats) multiples of 4, and
+    aligned first elements (``data_ptrs``).  ``n_pixel_tables``: the knots of
+    band_score2_fov's per-pixel tables, which size its block (0 for the
+    1-D-table instances).  One group of frames unless the level's blocks
+    cannot fill the card."""
+    vec = hw % 4 == 0 and all(s % 4 == 0 for s in frame_strides) \
+        and all(p % 16 == 0 for p in data_ptrs)
+    P = table_block_pixels(n_pixel_tables) if n_pixel_tables else BLOCK_PIXELS
+    n_blocks = -(-hw // P)
+    return LaunchPlan(vec, P, n_blocks, *frame_groups(n_blocks, F))
+
+
+def plan_for(name: str, planes, n_pixel_tables: int = 0) -> Tuple[LaunchPlan, list]:
+    """The launch plan for what a scorer reads (``planes``: [(label,
+    tensor)], each a (F, h, w) tensor with contiguous (h, w) planes, as a
+    channel of a (F, C, h, w) stack is, or a contiguous (F, C, h, w) stack
+    whose C planes are all read) and their frame strides; raises on what the
+    kernel cannot take.  Reads shapes, strides and addresses only, on any
+    device."""
+    strides = [_frame_stride(name, label, t) for label, t in planes]
+    first = planes[0][1]
+    return launch_plan(first.shape[0], first.shape[-2] * first.shape[-1], strides,
+                       [t.data_ptr() for _, t in planes], n_pixel_tables), strides
+
+
+def _out(plan: LaunchPlan, F: int, device):
+    """Partials (F, blocks, 2) and output (F, 2) of one launch."""
+    return (torch.empty((F, plan.n_blocks, 2), dtype=torch.float32, device=device),
             torch.empty((F, 2), dtype=torch.float32, device=device))
 
 
@@ -180,17 +258,17 @@ def band_score(T: torch.Tensor, R: torch.Tensor, L_bkg: torch.Tensor,
     _check("band_score", T, (("T", T), ("R", R), ("L_bkg", L_bkg), ("table", table)))
     if _on_cpu("band_score", T):
         return band_score_plain(T, R, L_bkg, table, meta, q)
-    strides = [_frame_stride("band_score", label, t)
-               for label, t in (("T", T), ("R", R), ("L_bkg", L_bkg))]
     if not table.is_contiguous():
         raise ValueError("band_score needs a contiguous table")
+    plan, strides = plan_for("band_score", (("T", T), ("R", R), ("L_bkg", L_bkg)))
     F, h, w = T.shape
-    partials, out = _scratch(F, h * w, T.device)
+    partials, out = _out(plan, F, T.device)
     fn = _lib.kernel_fn("band_score")
     with torch.cuda.device(T.device):
         rc = fn(T.data_ptr(), R.data_ptr(), L_bkg.data_ptr(), table.data_ptr(),
                 partials.data_ptr(), out.data_ptr(), F, h * w, *strides,
-                table.shape[0], *_scalars(meta, float(q)), _lib.stream_ptr(T))
+                table.shape[0], int(plan.vec), *plan[1:], *_kernel_scalars(meta, float(q)),
+                _lib.stream_ptr(T))
     _lib.check(rc, "band_score")
     _lib.count_launch("band_score")
     return out[:, 0]
@@ -210,14 +288,15 @@ def band_score2(band: torch.Tensor, L_bkg: torch.Tensor, tables: torch.Tensor,
         return band_score2_plain(band, L_bkg, tables, meta)
     if not (band.is_contiguous() and tables.is_contiguous()):
         raise ValueError("band_score2 needs a contiguous band and tables")
-    fs_L = _frame_stride("band_score2", "L_bkg", L_bkg)
+    plan, strides = plan_for("band_score2", (("band", band), ("L_bkg", L_bkg)))
     F, _, h, w = band.shape
-    partials, out = _scratch(F, h * w, band.device)
+    partials, out = _out(plan, F, band.device)
     fn = _lib.kernel_fn("band_score2")
     with torch.cuda.device(band.device):
         rc = fn(band.data_ptr(), L_bkg.data_ptr(), tables.data_ptr(),
-                partials.data_ptr(), out.data_ptr(), F, h * w, fs_L, tables.shape[1],
-                *_scalars(meta, meta.q_s, meta.q_t), _lib.stream_ptr(band))
+                partials.data_ptr(), out.data_ptr(), F, h * w, strides[-1], tables.shape[1],
+                int(plan.vec), *plan[1:], *_kernel_scalars(meta, meta.q_s, meta.q_t),
+                _lib.stream_ptr(band))
     _lib.check(rc, "band_score2")
     _lib.count_launch("band_score2")
     return out
@@ -242,14 +321,16 @@ def band_score2_fov(band: torch.Tensor, L_bkg: torch.Tensor, tabs_s: torch.Tenso
         return band_score2_fov_plain(band, L_bkg, tabs_s, tabs_t, meta)
     if not (band.is_contiguous() and tabs_s.is_contiguous() and tabs_t.is_contiguous()):
         raise ValueError("band_score2_fov needs a contiguous band and tables")
-    fs_L = _frame_stride("band_score2_fov", "L_bkg", L_bkg)
+    plan, strides = plan_for("band_score2_fov", (("band", band), ("L_bkg", L_bkg)),
+                            tabs_s.shape[0])
     F, _, h, w = band.shape
-    partials, out = _scratch(F, h * w, band.device)
+    partials, out = _out(plan, F, band.device)
     fn = _lib.kernel_fn("band_score2_fov")
     with torch.cuda.device(band.device):
         rc = fn(band.data_ptr(), L_bkg.data_ptr(), tabs_s.data_ptr(), tabs_t.data_ptr(),
-                partials.data_ptr(), out.data_ptr(), F, h * w, fs_L, tabs_s.shape[0],
-                *_scalars(meta, meta.q_s, meta.q_t), _lib.stream_ptr(band))
+                partials.data_ptr(), out.data_ptr(), F, h * w, strides[-1], tabs_s.shape[0],
+                int(plan.vec), *plan[1:], *_kernel_scalars(meta, meta.q_s, meta.q_t),
+                _lib.stream_ptr(band))
     _lib.check(rc, "band_score2_fov")
     _lib.count_launch("band_score2_fov")
     return out

@@ -176,7 +176,7 @@ def band_score2_mov(band: torch.Tensor, L_bkg: torch.Tensor, vd: torch.Tensor,
                 plan.frames_per_group, plan.groups,
                 meta.es0, bs.inv_f32(meta.des), meta.emin, meta.emax,
                 0.0 if meta.off5 is None else meta.off5,
-                *bs._scalars(m._replace(dy=bs.inv_f32(m.dy)), m.q_s, m.q_t),
+                *bs._kernel_scalars(m, m.q_s, m.q_t),
                 _lib.stream_ptr(band))
     _lib.check(rc, "mov_score")
     _lib.count_launch("mov_score")

@@ -251,3 +251,174 @@ def test_inv_f32_is_the_float32_reciprocal():
     for x in (0.6, 0.35, 1.1111111, 3.0):
         assert bs.inv_f32(x) == float(np.float32(1.0) / np.float32(x))
         assert abs(bs.inv_f32(x) * x - 1.0) < 2e-7
+
+
+# ---------------------------------------------------------------------------
+# band scorers (band_score, band_score2, band_score2_fov)
+# ---------------------------------------------------------------------------
+
+# blocks, frames per group and groups of band_score2_fov at the seven 4K
+# levels with tables of 19 knots (the shipped LUT at standard_4k): blocks of
+# 512 pixels, two of which fit on an SM
+TABLE_LEVELS_4K = [(16200, 32, 1), (4050, 32, 1), (1013, 32, 1), (254, 16, 2), (64, 7, 5),
+                   (16, 2, 16), (4, 1, 32)]
+
+
+@pytest.mark.parametrize("level", range(7), ids=[f"{h}x{w}" for (h, w), _, _ in LEVELS_4K])
+def test_band_score_plans_at_the_4k_levels(level):
+    """The three entry points on the planes core.py gives them: band_score
+    on channel views of the (F, 4, h, w) stack (frame stride 4 hw) and
+    L_bkg (frame stride hw), band_score2 and band_score2_fov on the stack.
+    Every 4K level takes the vector arm."""
+    (h, w), _, blocks = LEVELS_4K[level]
+    n = h * w
+    base = 1 << 20         # an aligned address; channel c starts 4 c n bytes later
+    one = bs.launch_plan(F, n, [4 * n, 4 * n, n], [base + 8 * n, base + 12 * n, 0])
+    two = bs.launch_plan(F, n, [4 * n] * 4 + [n], [base + 4 * c * n for c in range(4)] + [0])
+    fov = bs.launch_plan(F, n, [4 * n] * 4 + [n], [base + 4 * c * n for c in range(4)] + [0], 19)
+    for plan, want, P in ((one, blocks, 1024), (two, blocks, 1024),
+                          (fov, TABLE_LEVELS_4K[level], 512)):
+        assert plan.vec and plan.block_pixels == P
+        assert (plan.n_blocks, plan.frames_per_group, plan.groups) == want
+        assert (plan.n_blocks - 1) * P < n <= plan.n_blocks * P
+        _check_groups(plan.n_blocks, plan.frames_per_group, plan.groups, F)
+
+
+def test_band_score_plans_take_the_scalar_arm_at_the_vr_level_of_2250_pixels():
+    """htc_vive_pro (1440 x 1600) has a 50 x 45 level: 2250 pixels, not a
+    multiple of 4, so every entry point takes the scalar arm there."""
+    plan = fvvdp(display_name="htc_vive_pro", device="cpu")._get_core(1440, 1600).plan
+    assert (50, 45) in plan.level_shapes
+    band, L = torch.zeros((8, 4, 50, 45)), torch.ones((8, 1, 50, 45))[:, 0]
+    stack = (("band", band), ("L_bkg", L))
+    for name, p, n_tab, P in (("band_score", _one_channel(band, L, cc=0), 0, 1024),
+                              ("band_score2", stack, 0, 1024),
+                              ("band_score2_fov", stack, 19, 512)):
+        got, strides = bs.plan_for(name, p, n_tab)
+        assert not got.vec and got.block_pixels == P and got.n_blocks == -(-2250 // P)
+        assert strides[0] == 4 * 2250 and strides[-1] == 2250
+        _check_groups(got.n_blocks, got.frames_per_group, got.groups, 8)
+
+
+def _one_channel(band, L, cc=1):
+    return (("T", band[:, 2 * cc]), ("R", band[:, 2 * cc + 1]), ("L_bkg", L))
+
+
+@pytest.mark.parametrize("C", [4, 2])
+def test_band_score_plan_for_takes_channel_views_of_a_stack(C):
+    """band_score reads channel views of the (F, C, h, w) contrast stack as
+    they are, no copy: aligned planes at frame stride C hw keep the vector
+    arm; a stack whose planes are not a multiple of 4 pixels does not."""
+    band, L = torch.zeros((5, C, 10, 40)), torch.ones((5, 1, 10, 40))[:, 0]
+    plan, strides = bs.plan_for("band_score", _one_channel(band, L, cc=C // 2 - 1))
+    assert plan.vec and strides == [C * 400, C * 400, 400]
+    assert plan == bs.launch_plan(5, 400, strides, [band[:, C - 2].data_ptr(),
+                                                    band[:, C - 1].data_ptr(), L.data_ptr()])
+    odd, L_odd = torch.zeros((5, C, 10, 41)), torch.ones((5, 10, 41))
+    assert not bs.plan_for("band_score", _one_channel(odd, L_odd, cc=C // 2 - 1))[0].vec
+
+
+@pytest.mark.parametrize("which", ["band", "L_bkg"])
+def test_band_score_plans_leave_the_vector_arm_4_bytes_off_a_boundary(which):
+    """Contiguous planes that start 4 bytes past a 16-byte boundary: the
+    scalar arm, for every entry point."""
+    band, L = torch.zeros((5, 4, 10, 40)), torch.ones((5, 10, 40))
+    assert bs.plan_for("band_score2", (("band", band), ("L_bkg", L)))[0].vec
+    if which == "band":
+        band = _offset_by_one_float(band)
+    else:
+        L = _offset_by_one_float(L)
+    assert not bs.plan_for("band_score", _one_channel(band, L))[0].vec
+    assert not bs.plan_for("band_score2", (("band", band), ("L_bkg", L)))[0].vec
+    assert not bs.plan_for("band_score2_fov", (("band", band), ("L_bkg", L)), 19)[0].vec
+
+
+@pytest.mark.parametrize("fs_L,ptrs,vec", [
+    (400, [0, 1600, 0], True),
+    (402, [0, 1600, 0], False),           # L_bkg's frame stride off a multiple of 4
+    (400, [0, 1604, 0], False),           # R off a 16-byte boundary
+    (400, [0, 1600, 8], False),           # L_bkg
+])
+def test_band_score_plan_needs_aligned_planes_for_the_vector_arm(fs_L, ptrs, vec):
+    assert bs.launch_plan(5, 400, [1600, 1600, fs_L], ptrs).vec == vec
+
+
+def test_band_score_plan_for_raises_on_a_strided_plane():
+    band, L = torch.zeros((5, 4, 10, 40)), torch.ones((5, 10, 40))
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.plan_for("band_score", _one_channel(band[..., ::2], L[..., ::2]))
+
+
+@pytest.mark.parametrize("n,P", [(1, 1024), (7, 1024), (19, 512), (28, 256), (64, 128)])
+def test_band_score2_fov_block_fits_its_tables_twice_on_an_sm(n, P):
+    """The per-pixel tables (8 n bytes a pixel) size the block: the most
+    pixels of which two blocks fit on an SM's 228 KB, always within the
+    227 KB one block may take."""
+    assert bs.table_block_pixels(n) == P
+    used = bs.pixel_table_bytes(n, P) + bs.BLOCK_SHARED_OVERHEAD
+    assert used <= bs.MAX_BLOCK_SHARED_BYTES == 227 * 1024
+    assert 2 * used <= bs.SM_SHARED_BYTES
+    if P < bs.BLOCK_PIXELS:
+        assert 2 * (bs.pixel_table_bytes(n, 2 * P) + bs.BLOCK_SHARED_OVERHEAD) > bs.SM_SHARED_BYTES
+    plan = bs.launch_plan(3, 10000, [40000, 10000], [0, 0], n)
+    assert plan.block_pixels == P and plan.n_blocks == -(-10000 // P)
+
+
+@pytest.mark.parametrize("n", [0, 65])
+def test_band_score2_fov_refuses_tables_the_kernel_cannot_hold(n):
+    with pytest.raises(ValueError, match="knots"):
+        bs.launch_plan(3, 10000, [40000, 10000], [0, 0], n) if n else bs.table_block_pixels(n)
+
+
+def _band(F, h, w, seed=6):
+    rng = np.random.default_rng(seed)
+    band = torch.from_numpy((rng.standard_normal((F, 4, h, w)) * 0.05).astype(np.float32))
+    L = torch.from_numpy((10.0 ** rng.uniform(-1.3, 2.6, (F, h, w))).astype(np.float32))
+    return band, L
+
+
+def _table_coord_with_reciprocal(L, m, n):
+    """band_score's table coordinate with ``* (1 / dy)`` where it divides."""
+    inv_dy = torch.tensor(bs.inv_f32(m.dy), dtype=torch.float32)
+    return torch.clamp((torch.log2(torch.clamp(L, m.Ymin, m.Ymax)) - m.y0) * inv_dy,
+                       0.0, float(n - 1))
+
+
+@pytest.mark.parametrize("hw", [(96, 144), (67, 131)])
+def test_reciprocal_of_dy_stands_for_the_division_in_the_band_scorers(monkeypatch, hw):
+    """The band kernels multiply by inv_f32(dy) where the plain versions
+    divide by dy: the table coordinate moves by at most an ulp or two, and
+    the per-frame sums of every entry point by under 1e-5 relative (a tenth
+    of the kernels' bar), on the per-channel LUT tables, the shared-grid
+    tables and a fixation point's per-pixel tables."""
+    H, W = hw
+    band, L = _band(2, H, W)
+    fv_pc = fvvdp(device="cpu")
+    luts = [dict(l) for l in fv_pc._luts]
+    luts[1] = dict(luts[1], Y=luts[1]["Y"][:-1], Y_log=luts[1]["Y_log"][:-1],
+                   S_log=luts[1]["S_log"][:-1])
+    fv_pc.load_state(fv_pc.parameters, luts)
+    core_pc = fv_pc._get_core(W, H)
+    core = fvvdp(device="cpu")._get_core(W, H)
+    core_fov = fvvdp(device="cpu", foveated=True)._get_core(W, H)
+    tabs = core_fov.fov_tables((W / 3, H / 2))
+
+    def sums():
+        out = []
+        for bb, (h, w) in enumerate(core.plan.level_shapes[:3]):
+            b = band[..., :h, :w].contiguous()
+            l = L[..., :h, :w].contiguous()
+            for cc in range(2):
+                m = core_pc._channel_meta[bb][cc]
+                out.append(bs.band_score_plain(b[:, 2 * cc], b[:, 2 * cc + 1], l,
+                                               core_pc._channel_tables[bb][cc], m,
+                                               (m.q_s, m.q_t)[cc]))
+            out.append(bs.band_score2_plain(b, l, core._score_tables[bb], core._meta[bb]))
+            out.append(bs.band_score2_fov_plain(b, l, *tabs[bb], core_fov._fov_meta[bb]))
+        return [o.double() for o in out]
+
+    want = sums()
+    monkeypatch.setattr(bs, "_table_coord", _table_coord_with_reciprocal)
+    got = sums()
+    for g, w_ in zip(got, want):
+        assert ((g - w_).abs() / w_.abs().clamp_min(1e-30)).max().item() < 1e-5

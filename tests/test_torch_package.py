@@ -349,17 +349,22 @@ def _rel(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("Fhw", [(2, 64, 256), (3, 37, 200), (40, 9, 13), (1, 1, 1),
-                                 (33, 68, 120)])
+                                 (33, 68, 120), (2, 45, 50), (3, 67, 131), (33, 520, 520)])
 def test_band_score_kernels_match_plain(cuda, Fhw):
     """band_score (channel views of the stack, no copy), band_score2 and
     band_score2_fov: per-frame sums within 1e-4 relative of the plain
-    versions (the kernels score in log2 space, the plain ones with powers)."""
+    versions (the kernels score in log2 space, the plain ones with powers),
+    on the vector arm where h * w is a multiple of 4, else the scalar arm;
+    the last shape has blocks enough for one group of 33 frames, two chunks
+    of the frame sums."""
     from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
     F, h, w = Fhw
     core = fvvdp(device=cuda)._get_core(64, 64)
     meta, tables = core._meta[1], core._score_tables[1]
     n = tables.shape[1]
     band, L, tabs_s, tabs_t = _band_inputs(F, h, w, n, cuda)
+    assert bs.plan_for("band_score2", (("band", band), ("L_bkg", L)))[0].vec == (h * w % 4 == 0)
+    cuda_ops.reset_launch_counts()
     for cc, q in enumerate((meta.q_s, meta.q_t)):
         T, R = band[:, 2 * cc], band[:, 2 * cc + 1]
         assert _rel(bs.band_score(T, R, L, tables[cc], meta, q),
@@ -368,6 +373,129 @@ def test_band_score_kernels_match_plain(cuda, Fhw):
                 bs.band_score2_plain(band, L, tables, meta)) < 1e-4
     assert _rel(bs.band_score2_fov(band, L, tabs_s, tabs_t, meta),
                 bs.band_score2_fov_plain(band, L, tabs_s, tabs_t, meta)) < 2e-4
+    counts = cuda_ops.launch_counts()
+    assert (counts["band_score"], counts["band_score2"], counts["band_score2_fov"]) == (2, 1, 1)
+
+
+def _band_views(band, L, view):
+    """The same values as a view the vector arm cannot load 16 bytes at a
+    time: the band 4 bytes off a 16-byte boundary, L_bkg the same or at a
+    frame stride off a multiple of 4."""
+    if view == "band_offset":
+        return _offset_by_one_float(band), L
+    if view == "L_offset":
+        return band, _offset_by_one_float(L)
+    F, h, w = L.shape
+    rows = torch.empty((F, h * w + 2), dtype=L.dtype, device=L.device)
+    strided = rows[:, :h * w].view(F, h, w)
+    strided.copy_(L)
+    return band, strided
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Fhw", [(3, 36, 200), (33, 68, 120)])
+@pytest.mark.parametrize("view", ["band_offset", "L_offset", "L_stride"])
+def test_band_scorers_scalar_arm_gives_the_vector_arms_sums(cuda, view, Fhw):
+    """The arms differ in their loads only: a view off the vector arm's
+    alignment takes the scalar arm and gives its sums bit for bit, for every
+    entry point; a channel of the (F, 4, h, w) stack stays on the vector
+    arm."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    core = fvvdp(device=cuda)._get_core(64, 64)
+    meta, tables = core._meta[1], core._score_tables[1]
+    band, L, tabs_s, tabs_t = _band_inputs(*Fhw, tables.shape[1], cuda)
+    vband, vL = _band_views(band, L, view)
+    T, R = band[:, 2], band[:, 3]
+    assert bs.plan_for("band_score", (("T", T), ("R", R), ("L_bkg", L)))[0].vec
+    assert not bs.plan_for("band_score",
+                           (("T", vband[:, 2]), ("R", vband[:, 3]), ("L_bkg", vL)))[0].vec
+    assert not bs.plan_for("band_score2_fov", (("band", vband), ("L_bkg", vL)), 19)[0].vec
+    pairs = [
+        (bs.band_score(T, R, L, tables[1], meta, meta.q_t),
+         bs.band_score(vband[:, 2], vband[:, 3], vL, tables[1], meta, meta.q_t),
+         bs.band_score_plain(T, R, L, tables[1], meta, meta.q_t), 1e-4),
+        (bs.band_score2(band, L, tables, meta), bs.band_score2(vband, vL, tables, meta),
+         bs.band_score2_plain(band, L, tables, meta), 1e-4),
+        (bs.band_score2_fov(band, L, tabs_s, tabs_t, meta),
+         bs.band_score2_fov(vband, vL, tabs_s, tabs_t, meta),
+         bs.band_score2_fov_plain(band, L, tabs_s, tabs_t, meta), 2e-4),
+    ]
+    for vec, scalar, plain, tol in pairs:
+        assert torch.equal(scalar, vec)
+        assert _rel(scalar, plain) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 19, 64])
+@pytest.mark.parametrize("Fhw", [(3, 36, 200), (2, 45, 50)])
+def test_band_score2_fov_takes_every_table_size(cuda, Fhw, n):
+    """Per-pixel tables of 1 to 64 knots: the block shrinks as the tables
+    grow (1,024 pixels at n = 1, 512 at 19, 128 at 64), on both arms."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    core = fvvdp(device=cuda)._get_core(64, 64)
+    meta = core._meta[1]
+    F, h, w = Fhw
+    band, L, tabs_s, tabs_t = _band_inputs(F, h, w, n, cuda)
+    # a log2 Y grid of n knots over the inputs' luminance range
+    Y_log = np.linspace(np.log2(0.01), np.log2(10.0 ** 3.5), n)
+    meta = meta._replace(y0=float(Y_log[0]),
+                         dy=float(Y_log[-1] - Y_log[0]) / (n - 1) if n > 1 else 1.0,
+                         Ymin=0.01, Ymax=10.0 ** 3.5)
+    plan = bs.plan_for("band_score2_fov", (("band", band), ("L_bkg", L)), n)[0]
+    assert plan.block_pixels == {1: 1024, 19: 512, 64: 128}[n]
+    assert plan.vec == (h * w % 4 == 0)
+    assert _rel(bs.band_score2_fov(band, L, tabs_s, tabs_t, meta),
+                bs.band_score2_fov_plain(band, L, tabs_s, tabs_t, meta)) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(36, 200), (45, 50)])
+def test_band_scorers_sum_a_zero_channel_to_exactly_0(cuda, hw):
+    """An image (F = 1) with zero transient contrast, as the image path
+    gives it: that channel's sum is exactly 0 on every entry point (lg2(0)
+    = -inf, ex2(-inf) = 0), the sustained one agrees with the plain
+    version."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    core = fvvdp(device=cuda)._get_core(64, 64)
+    meta, tables = core._meta[1], core._score_tables[1]
+    band, L, tabs_s, tabs_t = _band_inputs(1, *hw, tables.shape[1], cuda)
+    band[:, 2:] = 0.0
+    zero = bs.band_score(band[:, 2], band[:, 3], L, tables[1], meta, meta.q_t)
+    assert bool((zero == 0.0).all())
+    for got, want in ((bs.band_score2(band, L, tables, meta),
+                       bs.band_score2_plain(band, L, tables, meta)),
+                      (bs.band_score2_fov(band, L, tabs_s, tabs_t, meta),
+                       bs.band_score2_fov_plain(band, L, tabs_s, tabs_t, meta))):
+        assert bool((got[:, 1] == 0.0).all()) and bool((want[:, 1] == 0.0).all())
+        assert _rel(got[:, 0], want[:, 0]) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["block_pixels", "n_blocks", "groups", "vec", "smem"])
+def test_band_score2_fov_entry_point_refuses_a_plan_that_contradicts_it(cuda, bad):
+    """The C entry point checks the plan it is given: a block it does not
+    take, blocks or groups that do not cover the plane and the frames, the
+    vector arm on a view off a 16-byte boundary, tables too large for a
+    block of that size."""
+    from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+    core = fvvdp(device=cuda)._get_core(64, 64)
+    meta = core._meta[1]
+    n = 64 if bad == "smem" else 19
+    band, L, tabs_s, tabs_t = _band_inputs(3, 36, 200, n, cuda)
+    if bad == "vec":
+        band = _offset_by_one_float(band)
+    plan, strides = bs.plan_for("band_score2_fov", (("band", band), ("L_bkg", L)), n)
+    plan = plan._replace(**{"block_pixels": dict(block_pixels=1000),
+                            "n_blocks": dict(n_blocks=plan.n_blocks + 1),
+                            "groups": dict(groups=plan.groups + 1),
+                            "vec": dict(vec=True),
+                            "smem": dict(block_pixels=1024, n_blocks=-(-7200 // 1024))}[bad])
+    partials, out = bs._out(plan, 3, cuda)
+    rc = _lib.kernel_fn("band_score2_fov")(
+        band.data_ptr(), L.data_ptr(), tabs_s.data_ptr(), tabs_t.data_ptr(),
+        partials.data_ptr(), out.data_ptr(), 3, 7200, strides[-1], n, int(plan.vec),
+        *plan[1:], *bs._kernel_scalars(meta, meta.q_s, meta.q_t), _lib.stream_ptr(band))
+    assert rc != 0
 
 
 @pytest.mark.gpu
@@ -563,9 +691,15 @@ def test_scorers_keep_a_nan_on_the_card(cuda, bad):
         m = args[-1].score
         tables = torch.linspace(1.0, 3.0, 38, device=cuda).reshape(2, 19)
         tabs = tables[0][:, None, None].expand(19, 20, 50).contiguous()
-        for got in (bs.band_score2(band, L, tables, m), bs.band_score2_plain(band, L, tables, m),
-                    bs.band_score2_fov(band, L, tabs, tabs, m)):
-            assert torch.equal(torch.isnan(got).cpu(), nan_at), got
+        for b, l in ((band, L), _band_views(band, L, "band_offset")):
+            for got in (bs.band_score2(b, l, tables, m), bs.band_score2_plain(b, l, tables, m),
+                        bs.band_score2_fov(b, l, tabs, tabs, m)):
+                assert torch.equal(torch.isnan(got).cpu(), nan_at), got
+            # one channel at a time: the channel's own NaN only
+            for cc in range(2):
+                got = bs.band_score(b[:, 2 * cc], b[:, 2 * cc + 1], l, tables[cc], m,
+                                    (m.q_s, m.q_t)[cc])
+                assert torch.equal(torch.isnan(got).cpu(), nan_at[:, cc]), got
 
 
 @pytest.mark.gpu
