@@ -12,15 +12,19 @@ Phases, each raising on failure:
      its bound and, where one exists, a library call computing the same
      function; mov_score with a sweeping gaze on two tables, on one table
      and an offset, on an image, and with the whole LUT in global memory;
-     expand_score2, mov_score and the three band scorers on both arms
-     (16-byte loads at the 4K levels; 4-byte loads on an odd width, an odd
-     pixel count and views that start off a 16-byte boundary), with the
-     registers nvcc -Xptxas -v reported and the SASS instructions per
-     pixel(-frame) from cuobjdump;
+     gausspyr_reduce (bit for bit), expand_score2, mov_score and the three
+     band scorers on both arms (16-byte loads at the 4K levels; 4-byte loads
+     on an odd width, an odd pixel count and views that start off a 16-byte
+     boundary), with the registers nvcc -Xptxas -v reported and the SASS
+     instructions per pixel(-frame) or output from cuobjdump;
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
      and the launches of each kernel in that run;
+  4b. the same clip with the raw pair kept on the host (residency limit 0):
+     the same JOD, its warm wall time and peak memory;
+  4c. a source with only the per-frame methods over the same clip: the same
+     JOD;
   5. image: the first frame pair as a 4K image (reduce and expand_score2
      launch, the temporal kernel does not);
   6. fixed-gaze foveation: the same clip and its first frame through
@@ -54,10 +58,18 @@ another:
     python3 chip_smoke.py --time-kernels [--package-root DIR]
 
 builds the kernels of the package under DIR (default: beside this script)
-and times expand_score2, every instance of mov_score and the three band
-scorers at the 4K levels of one 32-frame block, nothing else; it prints one
-JSON line.  DIR may hold an earlier commit's package (git archive) or a
+and times gausspyr_reduce, expand_score2, every instance of mov_score and
+the three band scorers at the 4K levels of one 32-frame block, and the
+array source's build for the 4K clip (median of 3), nothing else; it prints
+one JSON line.  DIR may hold an earlier commit's package (git archive) or a
 copy with one edit.
+
+    python3 chip_smoke.py --time-upload
+
+times the ways of putting the 4K clip's raw pair on the card in turns (the
+pageable copy, the package's staged copy at three chunk sizes, a page-locked
+caller buffer), the host transpose of that pair, and the source's build
+resident and host-resident; one JSON line.
 """
 import functools
 import json
@@ -214,41 +226,54 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def reduce_case(x, main_path, note, cases):
+    """One reduce: kernel against plain (bit for bit), timed beside its bound
+    and a strided conv2d computing the same level."""
+    N, h, w = x.numel() // (x.shape[-2] * x.shape[-1]), x.shape[-2], x.shape[-1]
+    got = red.gausspyr_reduce(x)
+    want = red.gausspyr_reduce_plain(x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    ok = bool(torch.equal(got, want))
+    vec = red.plan_for(x, got).vec
+    ms = time_ms(lambda: red.gausspyr_reduce(x))
+    plain_ms = time_ms(lambda: red.gausspyr_reduce_plain(x))
+    w2d = torch.as_tensor(np.outer(K5, K5), device=x.device)[None, None]
+    x3 = x.reshape(N, 1, h, w)
+    xpad = F.pad(torch.cat([x3[..., 1:2, :], x3[..., 0:1, :], x3,
+                            x3[..., -1:, :], x3[..., -2:-1, :]], dim=-2), (2, 2))
+    lib_ms = time_ms(lambda: F.conv2d(xpad, w2d, stride=2))
+    del xpad
+    ho, wo = got.shape[-2], got.shape[-1]
+    b_ms, b_by = bound(4 * N * (h * w + ho * wo), 9 * N * (ho * w + ho * wo),
+                       FP32_FLOP_PER_S)
+    add_row(cases, dict(case="gausspyr_reduce", shape=[N, h, w],
+                        arm="vector" if vec else "scalar", note=note, max_abs_err=err,
+                        tolerance="bit for bit", ok=ok, launches_per_call=1, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                        main_path=main_path), f"{(N, h, w)} ({note})")
+    return got, vec
+
+
 def check_reduce(gpyr_in, cases):
-    """Every level of one block's pyramid: kernel vs plain vs strided conv2d;
-    then the coarsest level once more, which the main path never reduces."""
-    w2d = torch.as_tensor(np.outer(K5, K5), device=gpyr_in.device)[None, None]
+    """Every level of one block's pyramid on the vector arm: kernel vs plain
+    vs strided conv2d; then the coarsest level once more, which the main path
+    never reduces; then the scalar arm: level 1 cut to an odd width, and
+    level 2 stored 4 bytes off a 16-byte boundary."""
     x = gpyr_in
     levels = [x]
     while len(levels) < cases["n_levels"] + 2:
         main_path = len(levels) <= cases["n_levels"]
-        N, h, w = x.shape[0] * x.shape[1], x.shape[-2], x.shape[-1]
-        got = red.gausspyr_reduce(x)
-        want = red.gausspyr_reduce_plain(x)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        ok = bool(torch.allclose(got, want, rtol=1e-5, atol=1e-4))
-        ms = time_ms(lambda: red.gausspyr_reduce(x))
-        plain_ms = time_ms(lambda: red.gausspyr_reduce_plain(x))
-        x3 = x.reshape(N, 1, h, w)
-        xpad = F.pad(torch.cat([x3[..., 1:2, :], x3[..., 0:1, :], x3,
-                                x3[..., -1:, :], x3[..., -2:-1, :]], dim=-2), (2, 2))
-        lib_ms = time_ms(lambda: F.conv2d(xpad, w2d, stride=2))
-        del xpad
-        ho, wo = got.shape[-2], got.shape[-1]
-        b_ms, b_by = bound(4 * N * (h * w + ho * wo), 9 * N * (ho * w + ho * wo),
-                           FP32_FLOP_PER_S)
-        row = dict(case="gausspyr_reduce", shape=[N, h, w], max_abs_err=err,
-                   tolerance="rtol 1e-5, atol 1e-4", ok=ok, launches_per_call=1,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                   bound_by=b_by, main_path=main_path)
-        emit(row)
-        cases["rows"].append(row)
-        if not ok:
-            raise AssertionError(f"gausspyr_reduce disagrees with its plain version at "
-                                 f"{(N, h, w)}: max abs err {err}")
-        levels.append(got)
-        x = got
+        x, vec = reduce_case(x, main_path, "main path" if main_path else "coarsest level",
+                             cases)
+        if main_path and not vec:
+            raise AssertionError(f"gausspyr_reduce at {tuple(levels[-1].shape)} left the "
+                                 f"vector arm")
+        levels.append(x)
+    for note, xs in (("odd width", levels[1][:8, :, :, :-1].contiguous()),
+                     ("input off a 16-byte boundary", offset_by_one_float(levels[2][:8]))):
+        if reduce_case(xs, False, note, cases)[1]:
+            raise AssertionError(f"gausspyr_reduce ({note}) took the vector arm")
     return levels[:-1]
 
 
@@ -574,13 +599,20 @@ def cut_luts(fv):
 # of the __global__ function, template arguments of the main path's instance
 # (expand_score2: vector arm, background channel 1; mov_score: two tables,
 # LUT in shared memory, vector arm; the band scorers: channels, per-pixel
-# tables, vector arm), the leading template arguments of the instances that
-# belong to the kernel, and its exp2 per pixel(-frame)
-REDESIGNED = {"expand_score2": ("band_pipeline", "expand_score_kernel", "11", "", 4),
-              "mov_score": ("mov_score", "mov_score_kernel", "111", "", 4),
-              "band_score": ("band_score", "band_score_kernel", "101", "10", 2),
-              "band_score2": ("band_score", "band_score_kernel", "201", "20", 4),
-              "band_score2_fov": ("band_score", "band_score_kernel", "211", "21", 4)}
+# tables, vector arm; reduce: vector arm), the leading template arguments of
+# the instances that belong to the kernel, and what one unit of work (a
+# pixel(-frame), an output) is counted by: the exp2 a scorer runs per pixel,
+# the outputs of reduce's stores (one 8-byte store holds two)
+_EX2 = lambda n: (lambda text: ("MUFU.EX2" in text) / n)
+_STORED_OUTPUTS = lambda text: (2 if text.startswith("STG.E.64") else
+                                1 if text.startswith("STG.E") else 0)
+REDESIGNED = {"gausspyr_reduce": ("reduce", "reduce_kernel", "1", "", _STORED_OUTPUTS),
+              "expand_score2": ("band_pipeline", "expand_score_kernel", "11", "", _EX2(4)),
+              "mov_score": ("mov_score", "mov_score_kernel", "111", "", _EX2(4)),
+              "band_score": ("band_score", "band_score_kernel", "101", "10", _EX2(2)),
+              "band_score2": ("band_score", "band_score_kernel", "201", "20", _EX2(4)),
+              "band_score2_fov": ("band_score", "band_score_kernel", "211", "21", _EX2(4))}
+SASS_UNIT = {"gausspyr_reduce": "output"}
 
 
 def _instance(symbol, function):
@@ -609,13 +641,13 @@ def ptxas_usage(stem, function):
 
 
 @functools.lru_cache(maxsize=None)
-def sass_counts(stem, function):
+def sass_counts(stem, function, units_of):
     """{instance: counts} from cuobjdump -sass of the built library, or None
     where the toolkit has no cuobjdump: every instruction of the kernel but
     the padding, those of its longest loop (the span of the backward branch
-    that jumps furthest), and the ex2 instructions in each.  A scorer runs a
-    known number of ex2 per pixel(-frame) (REDESIGNED), so a count over its
-    ex2 times that number is the instructions per pixel(-frame)."""
+    that jumps furthest), and the units of work in each (``units_of``: an
+    instruction's text -> the units it accounts for, REDESIGNED), so that
+    instructions over units is the instructions per unit."""
     tool = os.path.join(os.path.dirname(_lib.find_nvcc()), "cuobjdump")
     if not os.access(tool, os.X_OK):
         return None
@@ -635,8 +667,9 @@ def sass_counts(stem, function):
             if m and int(m.group(1), 16) < a and int(m.group(1), 16) in addr:
                 span = code[addr.index(int(m.group(1), 16)):i + 1]
                 loop = max(loop, span, key=len)
-        ex2 = lambda seq: sum("MUFU.EX2" in t for _, t in seq)
-        out[cur] = dict(total=len(code), total_ex2=ex2(code), loop=len(loop), loop_ex2=ex2(loop))
+        units = lambda seq: sum(units_of(t) for _, t in seq)
+        out[cur] = dict(total=len(code), total_units=units(code), loop=len(loop),
+                        loop_units=units(loop))
 
     for line in r.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -652,11 +685,11 @@ def sass_counts(stem, function):
 
 
 def build_facts(name):
-    """Registers, spills and SASS instructions per pixel(-frame) of every
+    """Registers, spills and SASS instructions per unit of work of every
     instance of one redesigned kernel, the main path's instance first."""
-    stem, function, main_instance, family, ex2_per_px = REDESIGNED[name]
+    stem, function, main_instance, family, units_of = REDESIGNED[name]
     regs = {i: r for i, r in ptxas_usage(stem, function).items() if i.startswith(family)}
-    sass = sass_counts(stem, function)
+    sass = sass_counts(stem, function, units_of)
     if main_instance not in regs:
         raise AssertionError(f"{name}: nvcc -Xptxas -v reported no instance "
                              f"{main_instance} of {function}: {sorted(regs)}")
@@ -665,9 +698,9 @@ def build_facts(name):
         per = "not measured"
         if sass is not None and inst in sass:
             c = sass[inst]
-            n, ex2 = ((c["loop"], c["loop_ex2"]) if c["loop_ex2"] >= ex2_per_px
-                      else (c["total"], c["total_ex2"]))
-            per = dict(c, per_pixel=ex2_per_px * n / ex2 if ex2 else None)
+            n, units = ((c["loop"], c["loop_units"]) if c["loop_units"] >= 1
+                        else (c["total"], c["total_units"]))
+            per = dict(c, per_unit=n / units if units else None)
         facts[inst] = dict(registers=regs[inst][0], spill_bytes=regs[inst][1], sass=per)
     return main_instance, facts
 
@@ -702,10 +735,31 @@ def kernel_summary(rows, path_launches):
             sass = facts[inst]["sass"]
             out[-1].update(
                 registers=facts[inst]["registers"], spill_bytes=facts[inst]["spill_bytes"],
-                sass_per_pixel=sass if isinstance(sass, str) else sass["per_pixel"],
+                sass_per_pixel=sass if isinstance(sass, str) else sass["per_unit"],
+                sass_unit=SASS_UNIT.get(name, "pixel(-frame)"),
                 instances=facts,
                 scalar_arm_cases=sum(r.get("arm") == "scalar" for r in mine))
     return out
+
+
+class FrameSource(fvt.fvvdp_video_source):
+    """A source with only the reference's per-frame methods, over another
+    source's frames; its blocks are the base class's concatenation."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def get_video_size(self):
+        return self.inner.get_video_size()
+
+    def get_frames_per_second(self):
+        return self.inner.get_frames_per_second()
+
+    def get_test_frame(self, frame, device=None):
+        return self.inner.get_test_frame(frame)
+
+    def get_reference_frame(self, frame, device=None):
+        return self.inner.get_reference_frame(frame)
 
 
 def first_block(fv, dev):
@@ -726,18 +780,35 @@ def first_block(fv, dev):
     return test_v, ref_v, vs, (ct, nt, cr, nr), taps, B
 
 
+def source_build_seconds(fv, test_v, ref_v, dev, runs=3):
+    """Seconds of building the array source of the clip, each ending in a
+    synchronise."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vs = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
+                                          display_photometry=fv.display_photometry,
+                                          device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del vs
+    return times
+
+
 def time_kernels(dev):
-    """--time-kernels: expand_score2, every instance of mov_score and the
-    three band scorers (band_score on each channel, band_score2,
-    band_score2_fov with a centre gaze's tables) at the levels of one 4K
-    block, through the wrappers of whatever package was imported, timed as
-    phase 3 times them, with a checksum per kernel and level.  One JSON
+    """--time-kernels: gausspyr_reduce, expand_score2, every instance of
+    mov_score and the three band scorers (band_score on each channel,
+    band_score2, band_score2_fov with a centre gaze's tables) at the levels of
+    one 4K block, through the wrappers of whatever package was imported,
+    timed as phase 3 times them, with a checksum per kernel and level; and
+    the build of the array source of the 4K clip (its upload).  One JSON
     line."""
     smi = nvidia_smi("name,power.limit")
     _lib.build()
     fv = fvt.fvvdp(display_name="standard_4k")
     core = fv._get_core(W, H)
-    _, _, vs, window, taps, B = first_block(fv, dev)
+    test_v, ref_v, vs, window, taps, B = first_block(fv, dev)
     gpyr = [tmp.temporal_pair(*window, taps)]
     del vs, window
     for _ in range(core.plan.height):
@@ -745,6 +816,13 @@ def time_kernels(dev):
     out = dict(phase="time_kernels", package=os.path.dirname(os.path.abspath(fvt.__file__)),
                nvidia_smi=smi, block_frames=B, expand_score2=[], mov_score={},
                band_score={}, band_score2=[], band_score2_fov=[])
+    out["gausspyr_reduce"] = [time_ms(lambda: red.gausspyr_reduce(gpyr[bb]))
+                              for bb in range(core.plan.height)]
+    out["gausspyr_reduce_sum_ms"] = sum(out["gausspyr_reduce"])
+    out["gausspyr_reduce_checksum"] = [g.double().sum().item() for g in gpyr[1:]]
+    out["source_build_s"] = source_build_seconds(fv, test_v, ref_v, dev)
+    out["source_build_s_median"] = float(np.median(out["source_build_s"]))
+    del test_v, ref_v
     sums = []
     for bb in range(core.plan.height):
         args = (gpyr[bb], gpyr[bb + 1], core._score_tables[bb], core._meta[bb])
@@ -786,6 +864,79 @@ def time_kernels(dev):
     return 0
 
 
+def upload_pageable(dst, src):
+    """The upload before the staged copy: one blocking copy from pageable
+    memory."""
+    dst.copy_(src)
+
+
+def upload_registered(dst, src):
+    """Page-lock the caller's own buffer, one asynchronous copy, unlock."""
+    cudart = torch.cuda.cudart()
+    ptr, nbytes = src.data_ptr(), src.numel() * src.element_size()
+    rc = int(cudart.cudaHostRegister(ptr, nbytes, 0))
+    if rc != 0:
+        raise RuntimeError(f"cudaHostRegister failed: cudaError {rc}")
+    try:
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+    finally:
+        cudart.cudaHostUnregister(ptr)
+
+
+def time_upload(dev):
+    """--time-upload: the raw pair of the 4K clip (2 x 0.5 GB uint8) put on
+    the card by each variant in turns (the pageable copy, the package's
+    staged copy at 16, 32 and 64 MB chunks, a page-locked caller buffer),
+    each checked byte for byte; the host transpose of the HWCF pair to
+    (C, F, H, W); the array source's build, resident and host-resident.
+    Seconds end in a synchronise.  One JSON line."""
+    from fovvideovdp_tpu_torch import video_source as vsrc
+    smi = nvidia_smi("name,power.limit")
+    test_v, ref_v = synth_clip(H, W, N_FRAMES)
+    srcs = [torch.from_numpy(test_v), torch.from_numpy(ref_v)]
+    want = [x.to(dev) for x in srcs]
+    dsts = [torch.empty_like(x) for x in want]
+    variants = {"pageable": upload_pageable,
+                "staged_16MB": functools.partial(vsrc._staged_copy, chunk_bytes=16 << 20),
+                "staged_32MB": functools.partial(vsrc._staged_copy, chunk_bytes=32 << 20),
+                "staged_64MB": functools.partial(vsrc._staged_copy, chunk_bytes=64 << 20),
+                "registered": upload_registered}
+    times = {k: [] for k in variants}
+    order = list(variants)
+    for rep in range(4):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            for d in dsts:
+                d.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for d, x in zip(dsts, srcs):
+                variants[name](d, x)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            if not all(torch.equal(d, w) for d, w in zip(dsts, want)):
+                raise AssertionError(f"upload variant {name} changed the bytes")
+    del dsts, want
+    nbytes = sum(x.numel() for x in srcs)
+    transpose = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for x in srcs:
+            vsrc.reshuffle_dims(x, "HWCF", "BCFHW")[0].contiguous()
+        transpose.append(time.perf_counter() - t0)
+    fv = fvt.fvvdp(display_name="standard_4k")
+    build = {"resident": source_build_seconds(fv, test_v, ref_v, dev)}
+    fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = 0
+    build["host_resident"] = source_build_seconds(fv, test_v, ref_v, dev)
+    fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = None
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    emit(dict(phase="time_upload", nvidia_smi=smi, bytes=nbytes, order=order, seconds=times,
+              median_s=med, gb_per_s={k: nbytes / v / 1e9 for k, v in med.items()},
+              host_transpose_s=transpose, source_build_s=build,
+              chunk_bytes=vsrc.UPLOAD_CHUNK_BYTES))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -794,6 +945,8 @@ def main():
     dev = torch.device("cuda")
     if "--time-kernels" in sys.argv:
         return time_kernels(dev)
+    if "--time-upload" in sys.argv:
+        return time_upload(dev)
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -865,10 +1018,10 @@ def main():
     q_video, stats = fv.predict(test_v, ref_v, dim_order="HWCF", frames_per_second=FPS)
     first_s = time.perf_counter() - t0
     launches = path_launches["video"] = cuda_ops.launch_counts()
-    expect_launches("video", launches,
-                    must=("gausspyr_reduce", "expand_score2", "temporal_pair"),
-                    must_not=("expand_contrast", "band_score", "band_score2",
-                              "band_score2_fov", "mov_score"))
+    video_must = ("gausspyr_reduce", "expand_score2", "temporal_pair")
+    video_not = ("expand_contrast", "band_score", "band_score2", "band_score2_fov",
+                 "mov_score")
+    expect_launches("video", launches, video_must, video_not)
     if not abs(q_video - GOLDEN_SYNTH_Q) <= JOD_TOL:
         raise AssertionError(f"4K clip JOD {q_video} vs the reference's {GOLDEN_SYNTH_Q}")
     q_pc = stats["Q_per_ch"]
@@ -894,6 +1047,44 @@ def main():
               peak_bytes_per_px_frame=peak / (B * H * W),
               launches=launches))
 
+    # 4b. the same clip with the raw pair kept on the host: each block goes up
+    # when it is needed, the next one's copy overlapping this one's scoring
+    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = 0
+    try:
+        (q_host, s_host), launches = counted(lambda: fv.predict(test_v, ref_v, **video_kw))
+        expect_launches("host-resident video", launches, video_must, video_not)
+        if q_host != q_video or not np.array_equal(s_host["Q_per_ch"], q_pc):
+            raise AssertionError(f"host-resident clip: JOD {q_host} vs resident {q_video}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, warm_s = warm_seconds(lambda: fv.predict(test_v, ref_v, **video_kw))
+        peak_host = torch.cuda.max_memory_allocated()
+        src_s, score_s = split_timings(fv, (test_v, ref_v, FPS), "HWCF", dev)
+    finally:
+        fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = None
+    emit(dict(phase="host_resident_video", jod=q_host, warm_s_runs=times,
+              warm_s_median=warm_s, fps=N_FRAMES / warm_s, source_s_median=src_s,
+              score_s_median=score_s, peak_bytes=peak_host, resident_peak_bytes=peak,
+              peak_below_resident_bytes=peak - peak_host,
+              raw_pair_bytes=test_v.nbytes + ref_v.nbytes, launches=launches))
+
+    # 4c. a source with only the per-frame methods, over the same clip
+    frames = FrameSource(fvt.fvvdp_video_source_array(
+        test_v, ref_v, FPS, dim_order="HWCF", display_photometry=fv.display_photometry,
+        device=dev))
+    t0 = time.perf_counter()
+    (q_frames, s_frames), launches = counted(lambda: fv.predict_video_source(frames))
+    frames_s = time.perf_counter() - t0
+    expect_launches("per-frame source", launches, video_must, video_not)
+    frames_diff = float(np.max(np.abs(s_frames["Q_per_ch"] - q_pc)))
+    emit(dict(phase="per_frame_source", jod=q_frames, jod_array_source=q_video,
+              max_abs_q_per_ch_diff=frames_diff, wall_s=frames_s, launches=launches))
+    if q_frames != q_video or frames_diff != 0.0:
+        raise AssertionError(f"per-frame source: JOD {q_frames} vs array source {q_video}, "
+                             f"Q_per_ch differs by {frames_diff}")
+    del frames
+
     # 5. image through the same entry point
     cuda_ops.reset_launch_counts()
     q_img, s_img = fv.predict(test_v[..., 0], ref_v[..., 0], dim_order="HWC")
@@ -916,7 +1107,6 @@ def main():
     # 6. fixed-gaze foveation: the 4K clip, its first frame, and a VR-sized
     # video against the CPU
     img_t, img_r = test_v[..., 0], ref_v[..., 0]
-    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
     fov_must = ("gausspyr_reduce", "expand_contrast", "band_score2_fov")
     fov_not = ("expand_score2", "band_score", "band_score2", "mov_score")
     (q_fov, s_fov), launches = counted(lambda: fv_fov.predict(test_v, ref_v, **video_kw))

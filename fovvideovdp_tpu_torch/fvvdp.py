@@ -257,27 +257,28 @@ class fvvdp:
         """Score a video source.  ``fixation_point``: one (x, y) point in
         pixels (the centre of the frame by default), or an (N, 2) array with
         one row per frame for a moving gaze; it matters only when the metric
-        is foveated."""
+        is foveated, but an (N, 2) array shorter than the video is refused
+        either way, as the JAX package refuses it."""
         if mesh is not None:
             raise _unsupported("mesh", "queue 1 item 14")
         if checkpoint_path is not None:
             raise _unsupported("checkpoint_path", "queue 1 item 12")
         height, width, N_frames = vid_source.get_video_size()
 
+        if fixation_point is None:
+            fixation_point = np.array([width // 2, height // 2])
+        fixation_point = np.asarray(fixation_point, dtype=np.float32)
+        if fixation_point.ndim == 2 and fixation_point.shape[0] < N_frames:
+            raise RuntimeError(
+                f"fixation_point has {fixation_point.shape[0]} per-frame "
+                f"rows but the video has {N_frames} frames; pass one (x, y) "
+                f"point or at least one row per frame")
         fov_tables = None
         gaze = None                  # (N_frames, 2) tensor: the moving route
         core = self._get_core(width, height)
         route = core.route
         if self.foveated:
-            if fixation_point is None:
-                fixation_point = np.array([width // 2, height // 2])
-            fixation_point = np.asarray(fixation_point, dtype=np.float32)
             if fixation_point.ndim == 2 and fixation_point.shape[1] == 2:
-                if fixation_point.shape[0] < N_frames:
-                    raise RuntimeError(
-                        f"fixation_point has {fixation_point.shape[0]} per-frame "
-                        f"rows but the video has {N_frames} frames; pass one (x, y) "
-                        f"point or at least one row per frame")
                 # this route reads no fixed-gaze tables; an earlier call may
                 # have left GB of them on the card
                 core.drop_fov_tables()
@@ -299,8 +300,12 @@ class fvvdp:
             if heat is not None:
                 heat_blocks.append(heat if self.device_heatmap else heat.cpu().numpy())
 
+        def on_device(pair):
+            # a per-frame source may give its frames on another device
+            return tuple(x.to(self.device, torch.float32) for x in pair)
+
         if N_frames == 1:
-            t, r = vid_source.get_luminance_block(0, 1)
+            t, r = on_device(vid_source.get_luminance_block(0, 1))
             Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
             keep(heat)
         else:
@@ -315,15 +320,16 @@ class fvvdp:
             B = self._pick_block_size(height, width, N_frames, route)
             Q_per_ch = torch.empty((plan.height, 2, N_frames), dtype=torch.float32,
                                    device=self.device)
-            carry_t, carry_r = vid_source.get_indexed_luminance_block(pad_idx[:fl - 1])
+            carry_t, carry_r = on_device(
+                vid_source.get_indexed_luminance_block(pad_idx[:fl - 1]))
             pos = 0
             while pos < N_frames:
                 b = min(B, N_frames - pos)
                 blk = stream_idx[pos:pos + b]
                 if np.array_equal(blk, np.arange(pos, pos + b)):
-                    new_t, new_r = vid_source.get_luminance_block(pos, b)
+                    new_t, new_r = on_device(vid_source.get_luminance_block(pos, b))
                 else:  # circular/pingpong padding reorders the first frames
-                    new_t, new_r = vid_source.get_indexed_luminance_block(blk)
+                    new_t, new_r = on_device(vid_source.get_indexed_luminance_block(blk))
                 Q_blk, heat, carry_t, carry_r = core.video_step(
                     carry_t, carry_r, new_t, new_r, taps, fov_tables,
                     None if gaze is None else gaze[pos:pos + b])

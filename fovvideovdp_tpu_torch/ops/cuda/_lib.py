@@ -41,9 +41,10 @@ _SCORE1 = [_F] * 9      # ..., q, lc10, lcorr, beta
 _SCORE2 = [_F] * 10     # ..., q_s, q_t, lc10, lcorr, beta
 # C signature of each library's entry point: (library stem, symbol, argtypes)
 _SIGNATURES = {
-    # x, y, N, H, W, stream
+    # x, y, N, H, W, vec, warps_per_block, strip_rows, col_blocks, strips
+    # (the wrapper's launch plan), stream
     "gausspyr_reduce": ("reduce", "fvvdp_gausspyr_reduce",
-                        [_P, _P, _I, _I, _I, _P]),
+                        [_P, _P, *[_I] * 8, _P]),
     # fine, coarse, tables, partials, out, F, H, W, h2, w2, n_grid, bkg_ch,
     # vec, tiles_x, tiles_y, frames_per_group, groups (the wrapper's launch
     # plan), scalars, stream

@@ -1,16 +1,20 @@
 """Video/image sources: test and reference frames as absolute-luminance
 blocks on the device.
 
-Counterpart of ``fovvideovdp_tpu/video_source.py:29-72,74-83,106-141,
-176-265,266-426``.  The array source uploads the raw (C, F, H, W) video to
-the device once; each block is a slice (or an ``index_select`` for the
-circular/pingpong warm-up) decoded, passed through the EOTF and converted
-RGB -> Y on the device.
+Counterpart of ``fovvideovdp_tpu/video_source.py:29-72,74-83,106-230,
+266-426``.  The base class takes the reference's per-frame API
+(``get_test_frame``/``get_reference_frame``) and builds blocks from it; the
+array source overrides the block methods.  It keeps the raw (C, F, H, W)
+pair on the device while it fits a share of the card's free memory, uploaded
+in chunks through pinned staging buffers; above that the pair stays on the
+host and each block's raw frames go up when the block is needed, on a side
+stream, the next block's copy overlapping this block's scoring.  Either way
+the decode, the EOTF and RGB -> Y run on the device.
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +69,11 @@ def _luminance_cfirst(blk: torch.Tensor, dm, rgb2y) -> torch.Tensor:
 
 
 class fvvdp_video_source(ABC):
-    """Abstract source of test/reference frames in absolute cd/m^2."""
+    """Abstract source of test/reference frames in absolute cd/m^2.
+
+    A subclass implements the per-frame methods (the reference's API); the
+    block methods concatenate them unless a subclass overrides them with a
+    batched conversion."""
 
     @abstractmethod
     def get_video_size(self) -> Tuple[int, int, int]:
@@ -76,15 +84,33 @@ class fvvdp_video_source(ABC):
         ...
 
     @abstractmethod
+    def get_test_frame(self, frame: int, device=None) -> torch.Tensor:
+        """Single frame as (1, 1, 1, H, W) float32 absolute luminance."""
+
+    @abstractmethod
+    def get_reference_frame(self, frame: int, device=None) -> torch.Tensor:
+        ...
+
+    def supports_random_access(self) -> bool:
+        """Whether frames can be fetched at arbitrary positions; circular
+        and pingpong padding need it.  A streaming source returns False."""
+        return True
+
     def get_luminance_block(self, start: int, count: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(test, reference) luminance blocks of shape (count, H, W)."""
+        return self.get_indexed_luminance_block(np.arange(start, start + count))
 
-    @abstractmethod
     def get_indexed_luminance_block(self, indices: np.ndarray
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Like get_luminance_block for an arbitrary frame index list
         (the circular/pingpong temporal warm-up)."""
+        if len(indices) == 0:
+            H, W, _ = self.get_video_size()
+            empty = torch.zeros((0, H, W), dtype=torch.float32)
+            return empty, empty
+        return (torch.cat([self.get_test_frame(int(i))[0, 0] for i in indices]),
+                torch.cat([self.get_reference_frame(int(i))[0, 0] for i in indices]))
 
 
 class fvvdp_video_source_dm(fvvdp_video_source):
@@ -106,22 +132,145 @@ class fvvdp_video_source_dm(fvvdp_video_source):
                 "display_photometry must be a string or fvvdp_display_photometry subclass")
 
 
-def _upload_cfhw(raw, dim_order: str, device) -> torch.Tensor:
-    """Raw array or tensor in any dim order -> contiguous (C, F, H, W) on
-    the device.  The bytes go up as stored and the dim shuffle runs on the
-    device; uint16 travels as int16 (decoded by ``_decode_raw``), types
-    other than uint8/int16/float32 as float32."""
-    t = raw if isinstance(raw, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(raw))
+# types that go to the device as they are stored (uint16 travels as int16);
+# others become float32 on the host
+_STORED_TYPES = (torch.uint8, torch.int16, torch.float16, torch.float32)
+# the resident upload's chunk: large enough that a chunk's launch and event
+# cost nothing beside its copy, small enough that two chunks' host copies
+# overlap the transfer from the first chunk on
+UPLOAD_CHUNK_BYTES = 32 << 20
+# share of the card's free memory the raw pair may take and stay resident
+DEVICE_PRELOAD_SHARE = 0.25
+
+
+def _as_stored(raw) -> torch.Tensor:
+    """Array or tensor -> tensor in the type it goes to the device in."""
+    if isinstance(raw, torch.Tensor):
+        t = raw
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(raw))
     if t.dtype == torch.uint16:
         t = t.view(torch.int16)
-    elif t.dtype not in (torch.uint8, torch.int16, torch.float32):
+    elif t.dtype not in _STORED_TYPES:
         t = t.to(torch.float32)
-    return reshuffle_dims(t.to(device), dim_order, "BCFHW")[0].contiguous()
+    return t
+
+
+def _staged_copy(dst: torch.Tensor, src: torch.Tensor,
+                 chunk_bytes: int = UPLOAD_CHUNK_BYTES) -> None:
+    """Contiguous host src -> contiguous CUDA dst of the same type and size,
+    in chunks through two pinned staging buffers on a side stream: the host
+    copy of chunk k+1 into one buffer overlaps the transfer of chunk k from
+    the other.  The host waits for a buffer's last transfer before it writes
+    the buffer again.  The current stream waits for the side stream, so
+    whatever is queued on it after this call sees the whole of dst."""
+    src_f, dst_f = src.reshape(-1), dst.view(-1)
+    n = src_f.numel()
+    chunk = max(1, chunk_bytes // src.element_size())
+    side = torch.cuda.Stream(dst.device)
+    compute = torch.cuda.current_stream(dst.device)
+    side.wait_stream(compute)          # dst may be memory the compute stream just freed
+    staging = [torch.empty(min(chunk, n), dtype=src.dtype, pin_memory=True)
+               for _ in range(2 if n > chunk else 1)]
+    done = [None] * len(staging)
+    for k, off in enumerate(range(0, n, chunk)):
+        m = min(chunk, n - off)
+        s = k % len(staging)
+        if done[s] is not None:
+            done[s].synchronize()
+        staging[s][:m].copy_(src_f[off:off + m])
+        with torch.cuda.stream(side):
+            dst_f[off:off + m].copy_(staging[s][:m], non_blocking=True)
+        done[s] = side.record_event()
+    compute.wait_stream(side)
+    dst.record_stream(side)
+
+
+def _upload_cfhw(raw, dim_order: str, device: torch.device) -> torch.Tensor:
+    """Raw array or tensor in any dim order -> contiguous (C, F, H, W) on
+    the device.  The bytes go up as stored (:func:`_staged_copy` from the
+    host) and the dim shuffle runs on the device."""
+    t = _as_stored(raw)
+    if t.device.type == "cpu" and device.type == "cuda":
+        up = torch.empty(t.shape, dtype=t.dtype, device=device)
+        _staged_copy(up, t.contiguous())
+        t = up
+    else:
+        t = t.to(device)
+    return reshuffle_dims(t, dim_order, "BCFHW")[0].contiguous()
+
+
+class _HostBlocks:
+    """The raw pair kept on the host as contiguous (C, F, H, W) tensors and
+    uploaded a block at a time: host copy into one of two pinned staging
+    buffers, transfer on a side stream, an event the compute stream waits on
+    before it reads the block.  :meth:`prefetch` starts the next block's
+    transfer so that it overlaps the scoring of this one."""
+
+    def __init__(self, host_t: torch.Tensor, host_r: torch.Tensor, device: torch.device):
+        self.host = (host_t, host_r)
+        self.device = device
+        self._side = torch.cuda.Stream(device)
+        self._staging = [None, None]     # pinned flat buffers, grown on demand
+        self._done = [None, None]        # the transfer that last read each buffer
+        self._slot = 0
+        self._pending = None             # ((start, count), device pair)
+
+    def _stage(self, t_blk: torch.Tensor, r_blk: torch.Tensor):
+        """Host (C, n, H, W) blocks -> (device (2, C, n, H, W) pair, the
+        event of its transfer on the side stream)."""
+        shape = (2,) + tuple(t_blk.shape)
+        n = 2 * t_blk.numel()
+        s = self._slot
+        self._slot ^= 1
+        if self._done[s] is not None:
+            self._done[s].synchronize()  # its last transfer has read it
+        if self._staging[s] is None or self._staging[s].numel() < n:
+            self._staging[s] = torch.empty(n, dtype=t_blk.dtype, pin_memory=True)
+        stg = self._staging[s][:n].view(shape)
+        stg[0].copy_(t_blk)
+        stg[1].copy_(r_blk)
+        dev = torch.empty(shape, dtype=t_blk.dtype, device=self.device)
+        # dev may reuse memory that work queued on the compute stream still reads
+        self._side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._side):
+            dev.copy_(stg, non_blocking=True)
+        self._done[s] = self._side.record_event()
+        dev.record_stream(self._side)    # freed unread, it still waits for its transfer
+        return dev, self._done[s]
+
+    def _ready(self, staged) -> torch.Tensor:
+        """The compute stream waits for the pair's transfer before it reads it."""
+        dev, event = staged
+        torch.cuda.current_stream(self.device).wait_event(event)
+        return dev
+
+    def block(self, start: int, count: int) -> torch.Tensor:
+        """Raw frames start..start+count-1 as a device (2, C, count, H, W)
+        pair, from the prefetch when it is that block."""
+        pending, self._pending = self._pending, None
+        if pending is not None and pending[0] == (start, count):
+            return self._ready(pending[1])
+        sl = slice(start, start + count)
+        return self._ready(self._stage(self.host[0][:, sl], self.host[1][:, sl]))
+
+    def indexed(self, idx: torch.Tensor) -> torch.Tensor:
+        return self._ready(self._stage(self.host[0].index_select(1, idx),
+                                       self.host[1].index_select(1, idx)))
+
+    def prefetch(self, start: int, count: int) -> None:
+        sl = slice(start, start + count)
+        self._pending = ((start, count), self._stage(self.host[0][:, sl], self.host[1][:, sl]))
 
 
 class fvvdp_video_source_array(fvvdp_video_source_dm):
     """Frames from numpy arrays (or tensors), any dim order,
-    uint8/uint16/int16/float, held on ``device``."""
+    uint8/uint16/int16/float.  The raw pair is held on ``device`` while it
+    takes at most ``DEVICE_PRELOAD_LIMIT_BYTES``, else on the host."""
+
+    # bytes of the raw pair above which it stays on the host; None: a quarter
+    # of the card's free memory (no limit on the CPU)
+    DEVICE_PRELOAD_LIMIT_BYTES: Optional[int] = None
 
     def __init__(self, test_video, reference_video, fps, dim_order="BCFHW",
                  display_photometry="sdr_4k_30", color_space_name="sRGB",
@@ -157,8 +306,28 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
         self.is_color = C == 3
         self._size = (H, W, F)
         self.device = torch.device(device)
-        self._t = _upload_cfhw(test_video, dim_order, self.device)
-        self._r = _upload_cfhw(reference_video, dim_order, self.device)
+        on_card = isinstance(test_video, torch.Tensor) and test_video.device.type == "cuda"
+        t, r = _as_stored(test_video), _as_stored(reference_video)
+        self.resident = on_card or \
+            2 * t.numel() * t.element_size() <= self._preload_limit()
+        self._blocks = None
+        if self.resident:
+            self._t = _upload_cfhw(t, dim_order, self.device)
+            self._r = _upload_cfhw(r, dim_order, self.device)
+        else:
+            # one contiguous host (C, F, H, W) copy of each (a byte-strided
+            # transpose for frames-last input); a block is then a slice
+            self._t = reshuffle_dims(t, dim_order, "BCFHW")[0].contiguous()
+            self._r = reshuffle_dims(r, dim_order, "BCFHW")[0].contiguous()
+            if self.device.type == "cuda":
+                self._blocks = _HostBlocks(self._t, self._r, self.device)
+
+    def _preload_limit(self) -> float:
+        if self.DEVICE_PRELOAD_LIMIT_BYTES is not None:
+            return self.DEVICE_PRELOAD_LIMIT_BYTES
+        if self.device.type != "cuda":
+            return float("inf")
+        return DEVICE_PRELOAD_SHARE * torch.cuda.mem_get_info(self.device)[0]
 
     def get_frames_per_second(self):
         return self.fps
@@ -169,11 +338,34 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
     def _lum(self, blk: torch.Tensor) -> torch.Tensor:
         return _luminance_cfirst(blk, self.dm_photometry, self.color_to_luminance)
 
+    def _raw(self, start: int, count: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Raw (C, count, H, W) test and reference frames on the device."""
+        if self._blocks is None:
+            sl = slice(start, start + count)
+            return self._t[:, sl], self._r[:, sl]
+        pair = self._blocks.block(start, count)
+        return pair[0], pair[1]
+
     def get_luminance_block(self, start, count):
-        return (self._lum(self._t[:, start:start + count]),
-                self._lum(self._r[:, start:start + count]))
+        t, r = self._raw(start, count)
+        out = self._lum(t), self._lum(r)
+        del t, r
+        nxt = start + count
+        if self._blocks is not None and nxt < self._size[2]:
+            self._blocks.prefetch(nxt, min(count, self._size[2] - nxt))
+        return out
 
     def get_indexed_luminance_block(self, indices):
-        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=self.device)
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64))
+        if self._blocks is not None:
+            pair = self._blocks.indexed(idx)
+            return self._lum(pair[0]), self._lum(pair[1])
+        idx = idx.to(self._t.device)
         return (self._lum(self._t.index_select(1, idx)),
                 self._lum(self._r.index_select(1, idx)))
+
+    def get_test_frame(self, frame, device=None):
+        return self._lum(self._raw(frame, 1)[0])[None, None]
+
+    def get_reference_frame(self, frame, device=None):
+        return self._lum(self._raw(frame, 1)[1])[None, None]

@@ -1,5 +1,5 @@
-"""What Python decides for the CUDA kernels ``expand_score2`` and
-``mov_score``: the arm (16-byte loads, or 4-byte loads each masked), the grid
+"""What Python decides for the CUDA kernels ``expand_score2``,
+``mov_score``, the band scorers and ``gausspyr_reduce``: the arm (16-byte loads, or 4-byte loads each masked), the grid
 and the size of the partial sums, as pure functions of shapes, strides and
 addresses; and the arithmetic decision those kernels rest on, that one
 reciprocal and a multiply may stand for each division.
@@ -15,6 +15,7 @@ from fovvideovdp_tpu_torch import fvvdp
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
+from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.pyramid import gausspyr_expand
 
 torch.set_num_threads(2)
@@ -422,3 +423,88 @@ def test_reciprocal_of_dy_stands_for_the_division_in_the_band_scorers(monkeypatc
     got = sums()
     for g, w_ in zip(got, want):
         assert ((g - w_).abs() / w_.abs().clamp_min(1e-30)).max().item() < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# gausspyr_reduce
+# ---------------------------------------------------------------------------
+
+# (H, W) of the input of each of the seven reduces of a 4K block's pyramid,
+# with warps per block, strip height, column blocks and strips
+REDUCE_4K = [
+    ((2160, 3840), (4, 32, 8, 34)),
+    ((1080, 1920), (4, 32, 4, 17)),
+    ((540, 960), (4, 32, 2, 9)),
+    ((270, 480), (4, 16, 1, 9)),
+    ((135, 240), (2, 8, 1, 9)),
+    ((68, 120), (1, 8, 1, 5)),
+    ((34, 60), (1, 8, 1, 3)),
+]
+PLANES_4K = 4 * F    # 32 frames x 4 temporal responses
+
+
+def _check_reduce_plan(p, N, H, W):
+    """The plan covers the planes, the output rows and the width (lanes 1..30
+    of a warp write 2 outputs each), with no column block past the width,
+    and the vector arm only where 16-byte loads fit."""
+    Ho, Wo = -(-H // 2), -(-W // 2)
+    warps = p.col_blocks * p.warps_per_block
+    assert 1 <= p.warps_per_block <= red.MAX_WARPS
+    assert 2 * red.LANES_OUT * warps >= Wo
+    assert 2 * red.LANES_OUT * p.warps_per_block * (p.col_blocks - 1) < Wo
+    assert (p.strips - 1) * p.strip_rows < Ho <= p.strips * p.strip_rows
+    assert p.strip_rows in red.STRIP_ROWS
+    assert not p.vec or W % 4 == 0
+    assert N * p.strips * p.col_blocks <= red.MAX_GRID_X
+
+
+@pytest.mark.parametrize("hw,plan", REDUCE_4K, ids=[f"{h}x{w}" for (h, w), _ in REDUCE_4K])
+def test_reduce_plan_at_the_4k_levels(hw, plan):
+    """Every 4K level takes the vector arm (its width is a multiple of 4, its
+    height may be odd: 135), the tallest strip that still fills a wave of
+    blocks, and as many warps per block as the width has, up to 4."""
+    H, W = hw
+    p = red.launch_plan(PLANES_4K, H, W, 0, 0)
+    assert p.vec and (p.warps_per_block, p.strip_rows, p.col_blocks, p.strips) == plan
+    assert p.threads == 32 * p.warps_per_block
+    _check_reduce_plan(p, PLANES_4K, H, W)
+    if p.strip_rows > red.STRIP_ROWS[-1]:
+        assert PLANES_4K * p.col_blocks * p.strips >= red.FILL_BLOCKS
+
+
+@pytest.mark.parametrize("hw", [(67, 131), (17, 30), (2, 2), (3, 5), (50, 126), (9, 13),
+                                (135, 241), (4, 2)])
+def test_reduce_plan_takes_the_scalar_arm_off_a_multiple_of_4(hw):
+    H, W = hw
+    p = red.launch_plan(8, H, W, 0, 0)
+    assert p.vec == (W % 4 == 0)
+    _check_reduce_plan(p, 8, H, W)
+
+
+@pytest.mark.parametrize("x_ptr,y_ptr,vec", [(0, 0, True), (256, 8, True), (4, 0, False),
+                                             (8, 0, False), (20, 0, False), (0, 4, False)])
+def test_reduce_plan_needs_aligned_planes_for_the_vector_arm(x_ptr, y_ptr, vec):
+    assert red.launch_plan(128, 1080, 1920, x_ptr, y_ptr).vec == vec
+
+
+@pytest.mark.parametrize("H", [2, 3, 17, 135, 1079, 2160])
+def test_reduce_plan_strips_cover_odd_and_even_heights(H):
+    for N in (1, 128):
+        _check_reduce_plan(red.launch_plan(N, H, 240, 0, 0), N, H, 240)
+
+
+def test_reduce_plan_takes_more_planes_than_grid_z_holds():
+    """Planes share grid.x with the strips and column blocks, so 100,000
+    planes launch (grid.z stops at 65,535); a grid past grid.x is refused."""
+    p = red.launch_plan(100_000, 17, 30, 0, 0)
+    assert p.strips * p.col_blocks * 100_000 <= red.MAX_GRID_X
+    with pytest.raises(ValueError, match="blocks"):
+        red.launch_plan(2**30, 64, 3840, 0, 0)
+
+
+def test_reduce_plan_for_reads_the_tensors():
+    x = _rand((2, 4, 67, 132), 1)
+    y = torch.empty((2, 4, 34, 66))
+    assert red.plan_for(x, y) == red.launch_plan(8, 67, 132, x.data_ptr(), y.data_ptr())
+    assert red.plan_for(x, y).vec
+    assert not red.plan_for(_offset_by_one_float(x), y).vec

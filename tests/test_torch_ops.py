@@ -32,7 +32,8 @@ from fovvideovdp_tpu_torch.ops.cuda.temporal import temporal_pair
 torch.set_num_threads(2)
 
 REDUCE_SHAPES = [(2, 4, 96, 256), (1, 4, 67, 131), (1, 4, 135, 240),
-                 (1, 4, 68, 120), (1, 4, 34, 60), (1, 4, 17, 30)]
+                 (1, 4, 68, 120), (1, 4, 34, 60), (1, 4, 17, 30),
+                 (1, 3, 50, 126), (1, 2, 2, 2), (1, 1, 3, 5)]
 
 
 def _rand(shape, seed, scale=100.0, offset=0.0):

@@ -219,14 +219,108 @@ def _rand(shape, seed, scale=80.0, offset=0.5):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 4, 96, 256), (1, 4, 67, 131), (1, 4, 135, 240),
-                                   (1, 4, 17, 30), (3, 2, 2), (1, 5, 3)])
-def test_reduce_kernel_matches_plain(cuda, shape):
+                                   (1, 4, 17, 30), (3, 2, 2), (1, 5, 3), (2, 3, 50, 126),
+                                   (1, 2, 270, 480), (1, 3, 5)])
+@pytest.mark.parametrize("view", ["aligned", "offset"])
+def test_reduce_kernel_matches_plain(cuda, shape, view):
+    """Bit for bit on both arms: 16-byte loads where the width is a multiple
+    of 4 and the input aligned, 4-byte loads on an odd width or a view 4
+    bytes off a 16-byte boundary."""
     from fovvideovdp_tpu_torch.ops.cuda.reduce import (gausspyr_reduce,
-                                                       gausspyr_reduce_plain)
-    x = _rand(shape, 1)
-    got = gausspyr_reduce(x.to(cuda)).cpu()
-    want = gausspyr_reduce_plain(x.to(cuda)).cpu()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+                                                       gausspyr_reduce_plain, plan_for)
+    x = _rand(shape, 1).to(cuda)
+    if view == "offset":
+        x = _offset_by_one_float(x)
+    assert plan_for(x, torch.empty(0, device=cuda)).vec == (
+        view == "aligned" and shape[-1] % 4 == 0)
+    got = gausspyr_reduce(x)
+    want = gausspyr_reduce_plain(x)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["vec", "warps", "col_blocks", "strips", "strip_rows"])
+def test_reduce_entry_point_refuses_a_plan_that_contradicts_it(cuda, bad):
+    """The C entry point checks the plan it is given: the vector arm on a
+    view off a 16-byte boundary, a block of 5 warps, column blocks or strips
+    that do not cover the level, a strip of no rows."""
+    from fovvideovdp_tpu_torch.ops.cuda import reduce as red
+    x = _rand((4, 67, 240), 2).to(cuda)
+    if bad == "vec":
+        x = _offset_by_one_float(x)
+    y = torch.empty((4, 34, 120), device=cuda)
+    plan = red.plan_for(x, y)
+    plan = plan._replace(**{"vec": dict(vec=True), "warps": dict(warps_per_block=5),
+                            "col_blocks": dict(col_blocks=plan.col_blocks + 1),
+                            "strips": dict(strips=plan.strips - 1),
+                            "strip_rows": dict(strip_rows=0)}[bad])
+    rc = _lib.kernel_fn("gausspyr_reduce")(x.data_ptr(), y.data_ptr(), 4, 67, 240,
+                                           int(plan.vec), *plan[1:], _lib.stream_ptr(x))
+    assert rc != 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float16, torch.float32])
+@pytest.mark.parametrize("chunk_bytes", [1000, 1 << 20])
+def test_staged_upload_gives_the_pageable_upload_bytes(cuda, dtype, chunk_bytes):
+    """Pinned staging buffers on a side stream, in many chunks and in one:
+    the same bytes as a plain pageable copy, visible to the compute stream
+    as soon as the call returns."""
+    from fovvideovdp_tpu_torch import video_source as vsrc
+    rng = np.random.default_rng(3)
+    src = torch.from_numpy(rng.integers(0, 255, size=(3, 5, 37, 61)).astype(np.uint8))
+    src = src.to(dtype) if dtype != torch.int16 else (src.to(torch.int16) * 257 - 30000)
+    dst = torch.empty(src.shape, dtype=dtype, device=cuda)
+    vsrc._staged_copy(dst, src, chunk_bytes)
+    assert torch.equal(dst.cpu(), src)
+    hwcf = src.permute(2, 3, 0, 1).contiguous()
+    assert torch.equal(vsrc._upload_cfhw(hwcf.numpy(), "HWCF", cuda), src.to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim_order", ["HWCF", "BCFHW"])
+def test_card_host_resident_path_matches_resident(cuda, monkeypatch, dim_order):
+    """The raw pair on the host, each block through the staging buffers on a
+    side stream, the next block's copy in flight during this one's scoring:
+    Q_per_ch equal to the resident path's bit for bit."""
+    test, ref = _tiny_video(shape=(40, 56, 3, 9))
+    if dim_order == "BCFHW":
+        test, ref = (np.ascontiguousarray(x.transpose(2, 3, 0, 1))[None] for x in (test, ref))
+    fv = fvvdp(display_name="standard_fhd", device=cuda, block_frames=2)
+    call = dict(dim_order=dim_order, frames_per_second=30)
+    _, s_res = fv.predict(test, ref, **call)
+    monkeypatch.setattr(fvt.fvvdp_video_source_array, "DEVICE_PRELOAD_LIMIT_BYTES", 0)
+    _, s_host = fv.predict(test, ref, **call)
+    np.testing.assert_array_equal(s_host["Q_per_ch"], s_res["Q_per_ch"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("frames_on", ["cuda", "cpu"])
+def test_card_scores_a_per_frame_source(cuda, frames_on):
+    """A source with only the per-frame methods goes through the kernels.
+    Frames decoded on the card give the array source's scores bit for bit;
+    frames decoded on the host (the CPU's EOTF) agree as the CPU run does."""
+    test, ref = _tiny_video()
+    fv = fvvdp(display_name="standard_fhd", device=cuda)
+    inner = fvt.fvvdp_video_source_array(test, ref, 30, dim_order="HWCF",
+                                         display_photometry=fv.display_photometry,
+                                         device=cuda if frames_on == "cuda" else "cpu")
+
+    class Frames(fvt.fvvdp_video_source):
+        get_video_size = inner.get_video_size
+        get_frames_per_second = inner.get_frames_per_second
+        get_test_frame = inner.get_test_frame
+        get_reference_frame = inner.get_reference_frame
+
+    cuda_ops.reset_launch_counts()
+    q, s = fv.predict_video_source(Frames())
+    assert cuda_ops.launch_counts()["gausspyr_reduce"] > 0
+    q_arr, s_arr = fv.predict(test, ref, dim_order="HWCF", frames_per_second=30)
+    if frames_on == "cuda":
+        np.testing.assert_array_equal(s["Q_per_ch"], s_arr["Q_per_ch"])
+    else:
+        assert abs(q - q_arr) <= 1e-3
+        np.testing.assert_allclose(s["Q_per_ch"], s_arr["Q_per_ch"], rtol=1e-3, atol=1e-5)
 
 
 def _offset_by_one_float(t):
