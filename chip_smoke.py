@@ -25,6 +25,23 @@ Phases, each raising on failure:
      the same JOD, its warm wall time and peak memory;
   4c. a source with only the per-frame methods over the same clip: the same
      JOD;
+  4d. yuv_file_video: the same clip written as a pair of 8-bit 4:2:0 .yuv
+     files (luma the clip's frames, chroma 128) under a temporary directory,
+     scored warm through fvvdp_video_source_file (the native reader, pinned
+     staging, the conversion on the card), against the array source fed the
+     host's float32 decode of the same planes (|dJOD| <= 1e-5); the default
+     route's launches; the seconds of reading, uploading, converting and
+     scoring apart, and peak memory;
+  4e. ffmpeg_pipe_video: the same files through stub ffprobe/ffmpeg
+     executables (Python scripts on a temporary PATH) and the native pipe
+     reader, the JOD of 4d within 1e-6;
+  4f. cli_yuv: run_fvvdp.main on the same files, in-process: the printed JOD
+     is 4d's to 4 decimals;
+  4g. yuv_10bit_pq_vs_cpu: a 10-bit 4:2:0 BT.2020 1920x1080x8 pair under
+     standard_hdr_pq with a bicubic full-screen resize to 3840x2160, card
+     against device="cpu" (|dJOD| <= 1e-4);
+  4h. packed_array_vs_cpu: the packed YUV source at 1080p x 8 frames, card
+     against device="cpu" (|dJOD| <= 1e-4);
   5. image: the first frame pair as a 4K image (reduce and expand_score2
      launch, the temporal kernel does not);
   6. fixed-gaze foveation: the same clip and its first frame through
@@ -71,12 +88,17 @@ pageable copy, the package's staged copy at three chunk sizes, a page-locked
 caller buffer), the host transpose of that pair, and the source's build
 resident and host-resident; one JSON line.
 """
+import contextlib
 import functools
+import io
 import json
 import os
 import re
+import shutil
+import stat
 import subprocess
 import sys
+import tempfile
 import time
 
 if "--package-root" in sys.argv:
@@ -96,7 +118,9 @@ from fovvideovdp_tpu_torch.ops.cuda import expand_contrast as ec
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.cuda import temporal as tmp
+from fovvideovdp_tpu_torch import native, run_fvvdp
 from fovvideovdp_tpu_torch.ops.pyramid import K5
+from fovvideovdp_tpu_torch.video_source_yuv import yuv_block_to_luminance
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 
 H, W, N_FRAMES, FPS = 2160, 3840, 60, 30.0
@@ -937,6 +961,272 @@ def time_upload(dev):
     return 0
 
 
+# --- file sources (phases 4d-4h) ------------------------------------------------
+
+def write_yuv420(path, luma_hwf, chroma=None):
+    """(H, W, F) luma planes -> a raw 4:2:0 file; chroma 128 (8-bit) unless
+    ``chroma(f)`` gives frame f's (u, v) planes."""
+    h, w, n = luma_hwf.shape
+    gray = np.full(h * w // 2, 128, dtype=luma_hwf.dtype).tobytes()
+    # torch's transpose copy runs on all cores, numpy's on one
+    frames = torch.from_numpy(luma_hwf.view(np.int16) if luma_hwf.dtype == np.uint16
+                              else luma_hwf).permute(2, 0, 1).contiguous().numpy()
+    with open(path, "wb") as f:
+        for k in range(n):
+            f.write(frames[k].tobytes())
+            if chroma is None:
+                f.write(gray)
+            else:
+                for plane in chroma(k):
+                    f.write(np.ascontiguousarray(plane).tobytes())
+
+
+def stub_ffmpeg(bindir):
+    """ffprobe prints <file>.probe.json; ffmpeg streams the file's raw bytes
+    to its stdout, as a decoder of a rawvideo stream would."""
+    os.makedirs(bindir, exist_ok=True)
+    bodies = {
+        "ffprobe": "import sys\nprint(open(sys.argv[-1] + '.probe.json').read())\n",
+        "ffmpeg": ("import shutil, sys\n"
+                   "path = sys.argv[sys.argv.index('-i') + 1]\n"
+                   "with open(path, 'rb') as f:\n"
+                   "    shutil.copyfileobj(f, sys.stdout.buffer, 1 << 24)\n")}
+    for name, body in bodies.items():
+        exe = os.path.join(bindir, name)
+        with open(exe, "w", encoding="utf-8") as f:
+            f.write(f"#!{sys.executable}\n{body}")
+        os.chmod(exe, os.stat(exe).st_mode | stat.S_IEXEC)
+
+
+class LuminanceSource(fvt.fvvdp_video_source):
+    """A clip's (F, H, W) luminance pair already on the card: scoring alone."""
+
+    def __init__(self, t, r, fps):
+        self.t, self.r, self.fps = t, r, fps
+
+    def get_video_size(self):
+        return self.t.shape[1], self.t.shape[2], self.t.shape[0]
+
+    def get_frames_per_second(self):
+        return self.fps
+
+    def get_luminance_block(self, start, count):
+        return self.t[start:start + count], self.r[start:start + count]
+
+    def get_indexed_luminance_block(self, indices):
+        idx = torch.as_tensor(np.asarray(indices, dtype=np.int64), device=self.t.device)
+        return self.t.index_select(0, idx), self.r.index_select(0, idx)
+
+    def get_test_frame(self, frame, device=None):
+        return self.t[frame][None, None, None]
+
+    def get_reference_frame(self, frame, device=None):
+        return self.r[frame][None, None, None]
+
+
+def yuv_stage_seconds(paths, fv, dev, B):
+    """The .yuv source's stages apart, for the pair at ``paths``: the native
+    reader into a pinned buffer (host clock), the upload (host clock around
+    a synchronised copy), the plain conversion of one block pair on the card
+    (CUDA events, median of 10, beside its byte bound), and the scoring of
+    the converted clip from a source that holds it on the card."""
+    readers = [native.NativeYuvReader(p, W, H, 8, "420") for p in paths]
+    n, fb = readers[0].frame_count, readers[0].frame_bytes
+    # one staging buffer of a block pair; every source allocates two
+    t0 = time.perf_counter()
+    pinned = torch.empty(2 * B * fb, dtype=torch.uint8, pin_memory=True)
+    pin_alloc_s = time.perf_counter() - t0
+    read_s = upload_s = 0.0
+    lum = [torch.empty((n, H, W), dtype=torch.float32, device=dev) for _ in paths]
+    rgb2y = fvt.utils.json2dict(fvt.utils.config_files.find("color_spaces.json"))["sRGB"]["RGB2Y"]
+    args = dict(w=W, h=H, bd=8, ss="420", bt2020=False, resize=None, rh=H, rw=W,
+                dm=fv.display_photometry, rgb2y=tuple(float(c) for c in rgb2y))
+    for start in range(0, n, B):
+        c = min(B, n - start)
+        t0 = time.perf_counter()
+        for k, rd in enumerate(readers):
+            rd.read_block(start, c, out=pinned[k * B * fb:(k * B + c) * fb])
+        t1 = time.perf_counter()
+        raw = [pinned[k * B * fb:(k * B + c) * fb].to(dev, non_blocking=True).view(c, -1)
+               for k in range(2)]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        read_s += t1 - t0
+        upload_s += t2 - t1
+        for k in range(2):
+            lum[k][start:start + c] = yuv_block_to_luminance(raw[k], **args)
+        if start == 0:
+            convert_ms = time_ms(lambda: [yuv_block_to_luminance(x, **args) for x in raw])
+            convert_bound_ms = 2 * c * (fb + 4 * H * W) / MEM_BYTES_PER_S * 1e3
+            convert_block = c
+    for rd in readers:
+        rd.close()
+    src = LuminanceSource(lum[0], lum[1], FPS)
+    score_s = warm_seconds(lambda: (fv.predict_video_source(src), torch.cuda.synchronize()))
+    nbytes = 2 * n * fb
+    return dict(pin_alloc_s=pin_alloc_s, pin_alloc_bytes=pinned.numel(),
+                read_s=read_s, read_gb_per_s=nbytes / read_s / 1e9, upload_s=upload_s,
+                upload_gb_per_s=nbytes / upload_s / 1e9, convert_ms_per_block=convert_ms,
+                convert_block_frames=convert_block, convert_s=convert_ms / 1e3 * n / convert_block,
+                convert_bound_ms=convert_bound_ms,
+                convert_bound_by="bytes", score_s_runs=score_s[0], score_s_median=score_s[1])
+
+
+def file_source_phases(fv, test_v, ref_v, dev):
+    """Phases 4d-4h.  The files live in a temporary directory that is deleted
+    afterwards; the frame count is cut (and said so) where it lacks room for
+    the 4K pair."""
+    video_must = ("gausspyr_reduce", "expand_score2", "temporal_pair")
+    video_not = ("expand_contrast", "band_score", "band_score2", "band_score2_fov",
+                 "mov_score")
+    frame_bytes = H * W * 3 // 2
+    with tempfile.TemporaryDirectory(prefix="fvvdp_smoke_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        n = min(N_FRAMES, int(0.8 * free // (2 * frame_bytes)))
+        if n < 2:
+            raise AssertionError(f"{tmp} has {free} bytes free, too few for two 4K frames")
+        t0 = time.perf_counter()
+        native_lib = native.build()
+        native_build_s = time.perf_counter() - t0
+        paths = [os.path.join(tmp, f"{tag}_{W}x{H}_8b_420_709_30fps.yuv") for tag in ("test", "ref")]
+        t0 = time.perf_counter()
+        for path, clip in zip(paths, (test_v, ref_v)):
+            write_yuv420(path, clip[:, :, 0, :n])
+        write_s = time.perf_counter() - t0
+
+        # 4d. the .yuv pair through the file source, against the array source
+        # fed the host's float32 decode of the same luma planes
+        def from_files(**kw):
+            vs = fvt.fvvdp_video_source_file(*paths, display_photometry=fv.display_photometry,
+                                             device=dev, **kw)
+            return fv.predict_video_source(vs)
+        t0 = time.perf_counter()
+        (q_yuv, s_yuv), launches = counted(from_files)
+        first_s = time.perf_counter() - t0
+        expect_launches("yuv file video", launches, video_must, video_not)
+        B = fv._pick_block_size(H, W, n)
+        n_blocks = -(-n // B)
+        n_levels = s_yuv["Q_per_ch"].shape[0]
+        want = dict(temporal_pair=n_blocks, gausspyr_reduce=n_levels * n_blocks,
+                    expand_score2=n_levels * n_blocks)
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"yuv file video: launches {launches}, expected {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, warm_s = warm_seconds(lambda: from_files())
+        peak = torch.cuda.max_memory_allocated()
+        decode = [np.clip(c[:, :, 0, :n].astype(np.float32) * np.float32(1.0 / 219.0)
+                          - np.float32(16.0 / 219.0), 0.0, 1.0) for c in (test_v, ref_v)]
+        q_arr, _ = fv.predict(decode[0], decode[1], dim_order="HWF", frames_per_second=FPS)
+        del decode
+        stages = yuv_stage_seconds(paths, fv, dev, B)
+        emit(dict(phase="yuv_file_video", frames=n, jod=q_yuv, jod_array_source=q_arr,
+                  tolerance="|dJOD| <= 1e-5", first_call_s=first_s, warm_s_runs=times,
+                  warm_s_median=warm_s, fps=n / warm_s, block_frames=B, peak_bytes=peak,
+                  peak_bytes_per_px_frame=peak / (B * H * W), file_bytes=2 * n * frame_bytes,
+                  write_s=write_s, native_build_s=native_build_s,
+                  native_library=os.path.basename(native_lib), launches=launches, **stages))
+        if not abs(q_yuv - q_arr) <= 1e-5 or not np.all(np.isfinite(s_yuv["Q_per_ch"])):
+            raise AssertionError(f"yuv file video: JOD {q_yuv} vs the array source's {q_arr}")
+
+        # 4e. the same files through an ffmpeg pipe (stub executables) and the
+        # native pipe reader
+        bindir = os.path.join(tmp, "bin")
+        stub_ffmpeg(bindir)
+        videos = []
+        for path in paths:
+            vid = path[:-4] + ".mp4"
+            os.symlink(path, vid)
+            with open(vid + ".probe.json", "w") as f:
+                json.dump({"streams": [{"codec_type": "video", "width": W, "height": H,
+                                        "pix_fmt": "yuv420p", "nb_frames": str(n),
+                                        "r_frame_rate": "30/1"}]}, f)
+            videos.append(vid)
+        old_path = os.environ["PATH"]
+        os.environ["PATH"] = bindir + os.pathsep + old_path
+        try:
+            def from_pipe():
+                vs = fvt.fvvdp_video_source_file(*videos, display_photometry=fv.display_photometry,
+                                                 device=dev)
+                return fv.predict_video_source(vs)
+            (q_pipe, _), launches = counted(from_pipe)
+            expect_launches("ffmpeg pipe video", launches, video_must, video_not)
+            times, warm_s = warm_seconds(from_pipe)
+        finally:
+            os.environ["PATH"] = old_path
+        emit(dict(phase="ffmpeg_pipe_video", frames=n, jod=q_pipe, jod_yuv_file=q_yuv,
+                  tolerance="|dJOD| <= 1e-6", warm_s_runs=times, warm_s_median=warm_s,
+                  fps=n / warm_s, launches=launches))
+        if not abs(q_pipe - q_yuv) <= 1e-6:
+            raise AssertionError(f"ffmpeg pipe video: JOD {q_pipe} vs the .yuv source's {q_yuv}")
+
+        # 4f. the CLI, in-process
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_fvvdp.main(["--test", paths[0], "--ref", paths[1], "--display",
+                                 "standard_4k", "--quiet"])
+        cli_s = time.perf_counter() - t0
+        printed = out.getvalue().strip().splitlines()[-1]
+        emit(dict(phase="cli_yuv", rc=rc, printed=printed, jod_yuv_file=q_yuv, wall_s=cli_s))
+        if rc != 0 or printed != f"{q_yuv:0.4f}":
+            raise AssertionError(f"cli: exit {rc}, printed {printed!r}, expected {q_yuv:0.4f}")
+        for p in paths + videos:
+            os.remove(p)
+
+        # 4g. 10-bit 4:2:0 BT.2020 under PQ, resized bicubic to 4K, card vs CPU
+        hd_t, hd_r = synth_clip(1080, 1920, 8)
+        rng = np.random.RandomState(1)
+        uv = [(rng.randint(448, 577, (540, 960)).astype(np.uint16),
+               rng.randint(448, 577, (540, 960)).astype(np.uint16)) for _ in range(8)]
+        pq = [os.path.join(tmp, f"{tag}_1920x1080_10b_420_2020_30fps.yuv") for tag in ("t", "r")]
+        for path, clip in zip(pq, (hd_t, hd_r)):
+            write_yuv420(path, (64 + clip[:, :, 0].astype(np.uint16) * 876 // 255), uv.__getitem__)
+        res = {}
+        for d in (dev, "cpu"):
+            fv_pq = fvt.fvvdp(display_name="standard_hdr_pq", device=d)
+            vs = fvt.fvvdp_video_source_file(*pq, display_photometry="standard_hdr_pq",
+                                             full_screen_resize="bicubic",
+                                             resize_resolution=(3840, 2160), device=d)
+            t0 = time.perf_counter()
+            (q, s), launches = counted(lambda: fv_pq.predict_video_source(vs))
+            res[str(d)] = (q, s, time.perf_counter() - t0, launches)
+        expect_launches("10-bit PQ yuv", res[str(dev)][3], video_must, video_not)
+        q_card, q_cpu = res[str(dev)][0], res["cpu"][0]
+        emit(dict(phase="yuv_10bit_pq_vs_cpu", shape=[1080, 1920, 8], resized_to=[2160, 3840],
+                  jod=q_card, jod_cpu=q_cpu, tolerance="|dJOD| <= 1e-4",
+                  wall_s=res[str(dev)][2], wall_s_cpu=res["cpu"][2],
+                  max_rel_q_per_ch=float(np.max(
+                      np.abs(res[str(dev)][1]["Q_per_ch"] - res["cpu"][1]["Q_per_ch"])
+                      / np.maximum(np.abs(res["cpu"][1]["Q_per_ch"]), 1e-6))),
+                  launches=res[str(dev)][3]))
+        if not abs(q_card - q_cpu) <= 1e-4 or res[str(dev)][1]["Q_per_ch"].shape[2] != 8:
+            raise AssertionError(f"10-bit PQ yuv: card {q_card} vs CPU {q_cpu}")
+
+    # 4h. the packed YUV source at 1080p, card vs CPU
+    rng = np.random.RandomState(2)
+    header = [8, 1080, 1920, 8, 420, 1080, 1920]
+    packed = []
+    for clip in (hd_t, hd_r):
+        body = [np.concatenate([clip[:, :, 0, k].ravel(),
+                                rng.randint(100, 156, 2 * 540 * 960)]) for k in range(8)]
+        packed.append(np.concatenate([header] + body).astype(np.uint16))
+    res = {}
+    for d in (dev, "cpu"):
+        vs = fvt.fvvdp_video_source_packed_array(*packed, FPS, display_photometry="standard_fhd",
+                                                 device=d)
+        t0 = time.perf_counter()
+        (q, _), launches = counted(lambda: fvt.fvvdp(display_name="standard_fhd", device=d)
+                                   .predict_video_source(vs))
+        res[str(d)] = (q, time.perf_counter() - t0, launches)
+    expect_launches("packed array", res[str(dev)][2], video_must, video_not)
+    emit(dict(phase="packed_array_vs_cpu", shape=[1080, 1920, 8], jod=res[str(dev)][0],
+              jod_cpu=res["cpu"][0], tolerance="|dJOD| <= 1e-4", wall_s=res[str(dev)][1],
+              wall_s_cpu=res["cpu"][1], launches=res[str(dev)][2]))
+    if not abs(res[str(dev)][0] - res["cpu"][0]) <= 1e-4:
+        raise AssertionError(f"packed array: card {res[str(dev)][0]} vs CPU {res['cpu'][0]}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -1084,6 +1374,10 @@ def main():
         raise AssertionError(f"per-frame source: JOD {q_frames} vs array source {q_video}, "
                              f"Q_per_ch differs by {frames_diff}")
     del frames
+
+    # 4d-4h. file sources: .yuv, an ffmpeg pipe, the CLI, 10-bit PQ, packed
+    file_source_phases(fv, test_v, ref_v, dev)
+    torch.cuda.empty_cache()
 
     # 5. image through the same entry point
     cuda_ops.reset_launch_counts()

@@ -4,8 +4,11 @@ A port of ``fovvideovdp_tpu`` (JAX/Pallas on TPU), which stays the
 reference.  This package imports torch and numpy only.  It scores images
 and videos on a CUDA card through hand-written kernels (``ops/cuda``,
 sources in ``csrc/``): the default configuration, foveation with a fixed or
-a per-frame gaze, heatmaps and per-channel CSF LUTs.  ``device="cpu"`` runs the kernels' plain
-PyTorch versions instead.
+a per-frame gaze, heatmaps and per-channel CSF LUTs.  ``device="cpu"``
+runs the kernels' plain PyTorch versions instead.  Files are read by
+``fvvdp_video_source_file`` (images, raw ``.yuv``, videos through ffmpeg or
+OpenCV) and scored from the command line by ``fvvdp-torch``
+(``python -m fovvideovdp_tpu_torch.run_fvvdp``).
 """
 from fovvideovdp_tpu_torch.display_model import (
     fvvdp_display_geometry,
@@ -15,10 +18,14 @@ from fovvideovdp_tpu_torch.display_model import (
     fvvdp_display_photometry,
 )
 from fovvideovdp_tpu_torch.fvvdp import fvvdp
+from fovvideovdp_tpu_torch.io.images import load_image_as_array
 from fovvideovdp_tpu_torch.video_source import (
     fvvdp_video_source,
     fvvdp_video_source_array,
+    fvvdp_video_source_packed_array,
 )
+from fovvideovdp_tpu_torch.video_source_file import fvvdp_video_source_file
+from fovvideovdp_tpu_torch.video_source_yuv import fvvdp_video_source_yuv_file
 from fovvideovdp_tpu_torch.visualize import vis_tonemap, visualize_diff_map
 
 __version__ = "0.1.0"
@@ -32,6 +39,10 @@ __all__ = [
     "fvvdp_display_geometry",
     "fvvdp_video_source",
     "fvvdp_video_source_array",
+    "fvvdp_video_source_packed_array",
+    "fvvdp_video_source_file",
+    "fvvdp_video_source_yuv_file",
+    "load_image_as_array",
     "visualize_diff_map",
     "vis_tonemap",
 ]

@@ -73,7 +73,7 @@ class MetricCore:
         if not all(csf_mod._axis_uniform(l, "Y_log") for l in self.luts):
             raise NotImplementedError(
                 "LUTs with a non-uniform Y grid take the unfused scorer, "
-                "ROADMAP queue 1 item 10")
+                "ROADMAP queue 1 item 3")
         self._luts_share_Y = all(
             np.array_equal(csf_mod._np(self.luts[0][k]), csf_mod._np(self.luts[1][k]))
             for k in ("Y_log", "Y"))

@@ -59,7 +59,7 @@ class CSFCache:
             if not os.path.isfile(path):
                 raise NotImplementedError(
                     f"no shipped CSF LUT for key {key!r}; generating LUTs "
-                    "analytically is ROADMAP queue 1 item 15 (csf_generator)")
+                    "analytically is ROADMAP queue 1 item 4 (csf_generator)")
             with np.load(path) as z:
                 lut_np = {k: z[k] for k in LUT_FIELDS}
             self._cache[key] = lut_from_numpy(lut_np, self.device)

@@ -1,12 +1,13 @@
 """Display photometry (EOTF -> absolute luminance) and geometry
 (pixels per degree).
 
-Counterpart of ``fovvideovdp_tpu/display_model.py:32-235,238-326,360-386``
-on torch tensors.  View directions and resolution magnification belong to
-foveation and are not part of this package yet.
+Counterpart of ``fovvideovdp_tpu/display_model.py:32-235,238-386`` on
+torch tensors, with ``print`` and ``list_displays`` (``:97-106,171,201,347``)
+for the CLI's ``--display ?`` and ``--verbose``.
 """
 from __future__ import annotations
 
+import logging
 import math
 from abc import ABC, abstractmethod
 from typing import Sequence
@@ -56,6 +57,15 @@ class fvvdp_display_photometry(ABC):
     @abstractmethod
     def get_black_level(self) -> float:
         ...
+
+    def print(self):
+        pass
+
+    @classmethod
+    def list_displays(cls):
+        models = utils.json2dict(utils.config_files.find("display_models.json"))
+        for display_name in models:
+            cls.load(display_name).print()
 
     @classmethod
     def load(cls, display_name: str) -> "fvvdp_display_photo_eotf":
@@ -114,6 +124,16 @@ class fvvdp_display_photo_eotf(fvvdp_display_photometry):
         Y_refl = self.E_ambient / math.pi * self.k_refl
         return Y_refl + self.Y_peak / self.contrast
 
+    def print(self):
+        Y_black = self.get_black_level()
+        logging.info(f"Photometric display model: {self.name}")
+        logging.info(f"  Peak luminance: {self.Y_peak} cd/m^2")
+        logging.info(f"  EOTF: {self.EOTF}")
+        logging.info(f"  Contrast - theoretical: {round(self.contrast)}:1")
+        logging.info(f"  Contrast - effective: {round(self.Y_peak / Y_black)}:1")
+        logging.info(f"  Ambient light: {self.E_ambient} lux")
+        logging.info(f"  Display reflectivity: {self.k_refl * 100}%")
+
 
 class fvvdp_display_photo_absolute(fvvdp_display_photometry):
     """For content already scaled in absolute cd/m^2 (e.g. HDR images)."""
@@ -130,6 +150,10 @@ class fvvdp_display_photo_absolute(fvvdp_display_photometry):
 
     def get_black_level(self):
         return self.L_min
+
+    def print(self):
+        logging.info("Photometric display model:")
+        logging.info("  Absolute photometric/colorimetric values")
 
 
 class fvvdp_display_photo_gog(fvvdp_display_photometry):
@@ -266,6 +290,18 @@ class fvvdp_display_geometry:
             return torch.ones(view_dir.shape[-2:], dtype=torch.float32,
                               device=view_dir.device)
         return self.get_ppd(view_dir) / self.get_ppd()
+
+    def print(self):
+        logging.info("Geometric display model:")
+        if self.fixed_ppd is not None:
+            logging.info(f"  Fixed pixels-per-degree: {self.fixed_ppd}")
+            return
+        logging.info(f"  Resolution: {self.resolution[0]} x {self.resolution[1]} pixels")
+        logging.info("  Display size: {:.1f} x {:.1f} cm".format(
+            self.display_size_m[0] * 100, self.display_size_m[1] * 100))
+        logging.info("  Display size: {:.2f} x {:.2f} deg".format(*self.display_size_deg))
+        logging.info("  Viewing distance: {:.3f} m".format(self.distance_m))
+        logging.info("  Pixels-per-degree (center): {:.2f}".format(self.get_ppd()))
 
     @classmethod
     def load(cls, display_name: str) -> "fvvdp_display_geometry":

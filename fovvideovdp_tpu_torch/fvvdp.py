@@ -3,7 +3,8 @@
 Counterpart of ``fovvideovdp_tpu/fvvdp.py:68-213`` (constructor, config,
 display, cores), ``predict``, ``predict_video_source`` (image branch, the
 streaming loop, foveation with a fixed or a per-frame gaze, heatmaps on the
-host or the device) and ``do_pooling_and_jods``.  The default device is the
+host or the device), ``do_pooling_and_jods`` and ``write_features_to_json``
+(``:1283-1295``).  The default device is the
 CUDA card; ``device="cpu"`` runs every kernel's plain version instead.
 
 Frames are scored in blocks: each block's temporal window is the fl-1
@@ -14,6 +15,7 @@ keeps them there.
 """
 from __future__ import annotations
 
+import json
 import logging
 from typing import Dict
 
@@ -28,7 +30,7 @@ from fovvideovdp_tpu_torch.display_model import (fvvdp_display_geometry,
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
-from fovvideovdp_tpu_torch.video_source import fvvdp_video_source_array
+from fovvideovdp_tpu_torch.video_source import fvvdp_video_source_array, resolve_device
 
 # Device bytes a block of B frames at H x W keeps live, per pixel-frame, by
 # the route the core takes (core.MetricCore.route).  "fused": the
@@ -63,20 +65,6 @@ def _unsupported(what: str, item: str):
                                f"yet ({item} of ROADMAP.md)")
 
 
-def _resolve_device(device) -> torch.device:
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "fovvideovdp_tpu_torch runs on a CUDA card by default and none "
-                "is available; pass device=\"cpu\" to run the plain PyTorch "
-                "versions of the kernels on the CPU")
-        return torch.device("cuda")
-    dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise RuntimeError(f"unsupported device {dev}")
-    return dev
-
-
 class fvvdp:
     """Full-reference video/image quality metric (JOD units): foveated with
     a fixed fixation point or a gaze per frame, or not foveated; with or
@@ -103,17 +91,17 @@ class fvvdp:
             raise ValueError("heatmap_dtype='uint8' requires a colormapped "
                              "heatmap type, not 'raw'")
         if not do_temporal_channels:
-            raise _unsupported("do_temporal_channels=False", "queue 1 item 10")
+            raise _unsupported("do_temporal_channels=False", "queue 1 item 3")
         if ignore_boundary_pixels:
-            raise _unsupported("ignore_boundary_pixels", "queue 1 item 10")
+            raise _unsupported("ignore_boundary_pixels", "queue 1 item 3")
         if band_callback is not None:
-            raise _unsupported("band_callback", "queue 1 item 10")
+            raise _unsupported("band_callback", "queue 1 item 3")
         if content_mapping is not None:
-            raise _unsupported("content_mapping", "queue 1 item 10")
+            raise _unsupported("content_mapping", "queue 1 item 3")
         if use_checkpoints:
-            raise _unsupported("use_checkpoints", "queue 1 item 13")
+            raise _unsupported("use_checkpoints", "queue 1 item 6")
 
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.quiet = quiet
         self.foveated = bool(foveated)
         self.heatmap = heatmap
@@ -152,7 +140,7 @@ class fvvdp:
     def _set_parameters(self, parameters: Dict):
         for key, default in _DEFAULTS.items():
             if parameters.get(key, default) != default:
-                raise _unsupported(f"{key}={parameters[key]!r}", "queue 1 item 10")
+                raise _unsupported(f"{key}={parameters[key]!r}", "queue 1 item 3")
         self.parameters = parameters
         for key in ("mask_p", "mask_c", "pu_dilate", "w_transient", "beta", "beta_t",
                     "beta_tch", "beta_sch", "sustained_sigma", "sustained_beta",
@@ -190,7 +178,7 @@ class fvvdp:
                 frames_per_second=0, fixation_point=None, mesh=None):
         """Predict quality for arrays.  Returns (Q_JOD, stats)."""
         if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 14")
+            raise _unsupported("mesh", "queue 1 item 7")
         test_vs = fvvdp_video_source_array(
             test_cont, reference_cont, frames_per_second, dim_order=dim_order,
             display_photometry=self.display_photometry,
@@ -260,9 +248,9 @@ class fvvdp:
         is foveated, but an (N, 2) array shorter than the video is refused
         either way, as the JAX package refuses it."""
         if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 14")
+            raise _unsupported("mesh", "queue 1 item 7")
         if checkpoint_path is not None:
-            raise _unsupported("checkpoint_path", "queue 1 item 12")
+            raise _unsupported("checkpoint_path", "queue 1 item 5")
         height, width, N_frames = vid_source.get_video_size()
 
         if fixation_point is None:
@@ -380,6 +368,20 @@ class fvvdp:
 
     def quality_unit(self):
         return "JOD"
+
+    def write_features_to_json(self, stats: dict, dest_fname: str):
+        """Per-band, per-channel, per-frame features for retraining the
+        metric (``fovvideovdp_tpu/fvvdp.py:1283-1295``)."""
+        Q_per_ch = stats["Q_per_ch"]  # [bb, cc, ff]
+        fmap = {}
+        for key, value in stats.items():
+            if key not in ("Q_per_ch", "heatmap"):
+                fmap[key] = value.tolist() if isinstance(value, np.ndarray) else value
+        for cc in range(Q_per_ch.shape[1]):
+            for bb in range(Q_per_ch.shape[0]):
+                fmap[f"t{cc}_b{bb}"] = Q_per_ch[bb, cc, :].tolist()
+        with open(dest_fname, "w", encoding="utf-8") as f:
+            json.dump(fmap, f, ensure_ascii=False, indent=4)
 
     def get_info_string(self):
         standard_str = f", ({self.display_name})" \

@@ -2,19 +2,21 @@
 blocks on the device.
 
 Counterpart of ``fovvideovdp_tpu/video_source.py:29-72,74-83,106-230,
-266-426``.  The base class takes the reference's per-frame API
+266-518``.  The base class takes the reference's per-frame API
 (``get_test_frame``/``get_reference_frame``) and builds blocks from it; the
 array source overrides the block methods.  It keeps the raw (C, F, H, W)
 pair on the device while it fits a share of the card's free memory, uploaded
 in chunks through pinned staging buffers; above that the pair stays on the
 host and each block's raw frames go up when the block is needed, on a side
-stream, the next block's copy overlapping this block's scoring.  Either way
-the decode, the EOTF and RGB -> Y run on the device.
+stream, the next block's copy overlapping this block's scoring
+(:class:`_HostBlocks`, which the file sources share).  Either way the
+decode, the EOTF and RGB -> Y run on the device.  The packed-array source
+converts one frame at a time through the per-frame methods.
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +50,20 @@ def reshuffle_dims(arr: torch.Tensor, in_dims: str, out_dims: str) -> torch.Tens
     return arr_p.reshape(out_sh)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    passes ``device="cpu"``.  A CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fovvideovdp_tpu_torch runs on a CUDA card by default and none "
+            "is available; pass device=\"cpu\" to run the plain PyTorch "
+            "versions of the kernels on the CPU")
+    return dev
+
+
 def _decode_raw(x: torch.Tensor) -> torch.Tensor:
     """Raw stored pixel values -> display-encoded float32 in [0, 1]."""
     if x.dtype == torch.uint8:
@@ -58,14 +74,54 @@ def _decode_raw(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+def channels_to_luminance(channel: Callable[[int], torch.Tensor], dm, rgb2y) -> torch.Tensor:
+    """Absolute luminance from the display-encoded colour channels that
+    ``channel(c)`` gives, c = 0, 1, 2: one channel's float32 intermediate
+    live at a time."""
+    L = dm.forward(channel(0)) * rgb2y[0]
+    L = L + dm.forward(channel(1)) * rgb2y[1]
+    return L + dm.forward(channel(2)) * rgb2y[2]
+
+
 def _luminance_cfirst(blk: torch.Tensor, dm, rgb2y) -> torch.Tensor:
-    """(C, n, H, W) raw frames -> (n, H, W) absolute luminance, one
-    channel's float32 intermediate live at a time."""
+    """(C, n, H, W) raw frames -> (n, H, W) absolute luminance."""
     if blk.shape[0] == 3:
-        L = dm.forward(_decode_raw(blk[0])) * rgb2y[0]
-        L = L + dm.forward(_decode_raw(blk[1])) * rgb2y[1]
-        return L + dm.forward(_decode_raw(blk[2])) * rgb2y[2]
+        return channels_to_luminance(lambda c: _decode_raw(blk[c]), dm, rgb2y)
     return dm.forward(_decode_raw(blk[0]))
+
+
+# pixels of one conversion chunk of a file source: the decode's float32
+# temporaries (a few tens of bytes a pixel) are live for this many at once
+CONVERT_CHUNK_PIXELS = 1 << 25
+
+
+def convert_frames(n: int, out_hw, pixels_per_frame: int, device,
+                   fn: Callable[[int, int], torch.Tensor]) -> torch.Tensor:
+    """(n, H, W) float32 luminance whose frames i..j-1 are ``fn(i, j)``,
+    computed a chunk of whole frames at a time, so that the decode's
+    temporaries stay bounded whatever the block size."""
+    out = torch.empty((n,) + tuple(out_hw), dtype=torch.float32, device=device)
+    step = max(1, CONVERT_CHUNK_PIXELS // max(1, pixels_per_frame))
+    for i in range(0, n, step):
+        j = min(n, i + step)
+        out[i:j] = fn(i, j)
+    return out
+
+
+def is_run(idx: np.ndarray) -> bool:
+    """Whether the frame indices are consecutive and increasing."""
+    return len(idx) > 0 and bool(np.all(np.diff(idx) == 1))
+
+
+def host_tensor(arr: np.ndarray) -> torch.Tensor:
+    """A host array as a tensor of its stored bytes (uint16 as int16); a
+    read-only array (a memory map) is copied first."""
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags["WRITEABLE"]:
+        arr = arr.copy()
+    if arr.dtype == np.uint16:
+        arr = arr.view(np.int16)
+    return torch.from_numpy(arr)
 
 
 class fvvdp_video_source(ABC):
@@ -201,36 +257,38 @@ def _upload_cfhw(raw, dim_order: str, device: torch.device) -> torch.Tensor:
 
 
 class _HostBlocks:
-    """The raw pair kept on the host as contiguous (C, F, H, W) tensors and
-    uploaded a block at a time: host copy into one of two pinned staging
-    buffers, transfer on a side stream, an event the compute stream waits on
-    before it reads the block.  :meth:`prefetch` starts the next block's
-    transfer so that it overlaps the scoring of this one."""
+    """Raw frames kept off the card (host tensors, a file, a pipe) and sent
+    up a block at a time.  ``fill(indices, buf)`` writes the test and
+    reference frames at ``indices`` into ``buf``, a flat uint8 slice of one
+    of two pinned staging buffers, ``nbytes(n)`` long; the transfer runs on
+    a side stream, and the compute stream waits on its event before it reads
+    the block.  :meth:`prefetch` starts the next block's read and transfer,
+    so that the transfer overlaps the scoring of this one."""
 
-    def __init__(self, host_t: torch.Tensor, host_r: torch.Tensor, device: torch.device):
-        self.host = (host_t, host_r)
+    def __init__(self, fill: Callable[[np.ndarray, torch.Tensor], None],
+                 nbytes: Callable[[int], int], device: torch.device):
+        self._fill = fill
+        self._nbytes = nbytes
         self.device = device
         self._side = torch.cuda.Stream(device)
-        self._staging = [None, None]     # pinned flat buffers, grown on demand
+        self._staging = [None, None]     # pinned flat uint8 buffers, grown on demand
         self._done = [None, None]        # the transfer that last read each buffer
         self._slot = 0
-        self._pending = None             # ((start, count), device pair)
+        self._pending = None             # ((start, count), staged block)
 
-    def _stage(self, t_blk: torch.Tensor, r_blk: torch.Tensor):
-        """Host (C, n, H, W) blocks -> (device (2, C, n, H, W) pair, the
-        event of its transfer on the side stream)."""
-        shape = (2,) + tuple(t_blk.shape)
-        n = 2 * t_blk.numel()
+    def _stage(self, idx: np.ndarray):
+        """Frames at idx -> (flat uint8 device block, the event of its
+        transfer on the side stream)."""
+        n = self._nbytes(len(idx))
         s = self._slot
         self._slot ^= 1
         if self._done[s] is not None:
             self._done[s].synchronize()  # its last transfer has read it
         if self._staging[s] is None or self._staging[s].numel() < n:
-            self._staging[s] = torch.empty(n, dtype=t_blk.dtype, pin_memory=True)
-        stg = self._staging[s][:n].view(shape)
-        stg[0].copy_(t_blk)
-        stg[1].copy_(r_blk)
-        dev = torch.empty(shape, dtype=t_blk.dtype, device=self.device)
+            self._staging[s] = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+        stg = self._staging[s][:n]
+        self._fill(idx, stg)
+        dev = torch.empty(n, dtype=torch.uint8, device=self.device)
         # dev may reuse memory that work queued on the compute stream still reads
         self._side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._side):
@@ -240,27 +298,24 @@ class _HostBlocks:
         return dev, self._done[s]
 
     def _ready(self, staged) -> torch.Tensor:
-        """The compute stream waits for the pair's transfer before it reads it."""
+        """The compute stream waits for the block's transfer before it reads it."""
         dev, event = staged
         torch.cuda.current_stream(self.device).wait_event(event)
         return dev
 
     def block(self, start: int, count: int) -> torch.Tensor:
-        """Raw frames start..start+count-1 as a device (2, C, count, H, W)
-        pair, from the prefetch when it is that block."""
+        """Frames start..start+count-1 as a flat uint8 device block, from
+        the prefetch when it is that block."""
         pending, self._pending = self._pending, None
         if pending is not None and pending[0] == (start, count):
             return self._ready(pending[1])
-        sl = slice(start, start + count)
-        return self._ready(self._stage(self.host[0][:, sl], self.host[1][:, sl]))
+        return self._ready(self._stage(np.arange(start, start + count)))
 
-    def indexed(self, idx: torch.Tensor) -> torch.Tensor:
-        return self._ready(self._stage(self.host[0].index_select(1, idx),
-                                       self.host[1].index_select(1, idx)))
+    def indexed(self, idx: np.ndarray) -> torch.Tensor:
+        return self._ready(self._stage(np.asarray(idx, dtype=np.int64)))
 
     def prefetch(self, start: int, count: int) -> None:
-        sl = slice(start, start + count)
-        self._pending = ((start, count), self._stage(self.host[0][:, sl], self.host[1][:, sl]))
+        self._pending = ((start, count), self._stage(np.arange(start, start + count)))
 
 
 class fvvdp_video_source_array(fvvdp_video_source_dm):
@@ -305,7 +360,7 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
         self.is_video = fps > 0
         self.is_color = C == 3
         self._size = (H, W, F)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         on_card = isinstance(test_video, torch.Tensor) and test_video.device.type == "cuda"
         t, r = _as_stored(test_video), _as_stored(reference_video)
         self.resident = on_card or \
@@ -320,7 +375,7 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
             self._t = reshuffle_dims(t, dim_order, "BCFHW")[0].contiguous()
             self._r = reshuffle_dims(r, dim_order, "BCFHW")[0].contiguous()
             if self.device.type == "cuda":
-                self._blocks = _HostBlocks(self._t, self._r, self.device)
+                self._blocks = _HostBlocks(self._fill, self._pair_bytes, self.device)
 
     def _preload_limit(self) -> float:
         if self.DEVICE_PRELOAD_LIMIT_BYTES is not None:
@@ -338,12 +393,32 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
     def _lum(self, blk: torch.Tensor) -> torch.Tensor:
         return _luminance_cfirst(blk, self.dm_photometry, self.color_to_luminance)
 
+    def _pair_bytes(self, n: int) -> int:
+        C, _, H, W = self._t.shape
+        return 2 * C * n * H * W * self._t.element_size()
+
+    def _pair(self, flat: torch.Tensor, n: int) -> torch.Tensor:
+        """A flat uint8 block -> the (2, C, n, H, W) pair in its stored type."""
+        C, _, H, W = self._t.shape
+        return flat.view(self._t.dtype).view(2, C, n, H, W)
+
+    def _fill(self, idx: np.ndarray, buf: torch.Tensor) -> None:
+        pair = self._pair(buf, len(idx))
+        if is_run(idx):
+            sl = slice(int(idx[0]), int(idx[-1]) + 1)
+            pair[0].copy_(self._t[:, sl])
+            pair[1].copy_(self._r[:, sl])
+        else:
+            i = torch.from_numpy(idx)
+            pair[0].copy_(self._t.index_select(1, i))
+            pair[1].copy_(self._r.index_select(1, i))
+
     def _raw(self, start: int, count: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Raw (C, count, H, W) test and reference frames on the device."""
         if self._blocks is None:
             sl = slice(start, start + count)
             return self._t[:, sl], self._r[:, sl]
-        pair = self._blocks.block(start, count)
+        pair = self._pair(self._blocks.block(start, count), count)
         return pair[0], pair[1]
 
     def get_luminance_block(self, start, count):
@@ -358,7 +433,7 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
     def get_indexed_luminance_block(self, indices):
         idx = torch.as_tensor(np.asarray(indices, dtype=np.int64))
         if self._blocks is not None:
-            pair = self._blocks.indexed(idx)
+            pair = self._pair(self._blocks.indexed(idx.numpy()), len(idx))
             return self._lum(pair[0]), self._lum(pair[1])
         idx = idx.to(self._t.device)
         return (self._lum(self._t.index_select(1, idx)),
@@ -369,3 +444,72 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
 
     def get_reference_frame(self, frame, device=None):
         return self._lum(self._raw(frame, 1)[1])[None, None]
+
+
+class fvvdp_video_source_packed_array(fvvdp_video_source_dm):
+    """Flat-packed YUV or RGB frames behind a 7-int header, for batch and
+    IPC use (``fovvideovdp_tpu/video_source.py:446-518``).
+
+    Header: [n_frames, h, w, bit_depth, chroma_ss, resize_h, resize_w].
+    Frames are converted one at a time on ``device`` through the per-frame
+    methods (the base class builds blocks from them).  As in the JAX
+    package, :meth:`get_video_size` gives the resize target, not the stored
+    size, and the BT.2020 matrix is chosen by ``color_space_name ==
+    "bt2020nc"``."""
+
+    def __init__(self, test_video, reference_video, fps,
+                 display_photometry="sdr_4k_30", color_space_name="sRGB",
+                 yuv=True, resize_mode="bilinear", device="cuda"):
+        super().__init__(display_photometry, color_space_name)
+        self.fps = fps
+        self.is_video = fps > 0
+        self.test_video = np.asarray(test_video)
+        self.reference_video = np.asarray(reference_video)
+        self.yuv = yuv
+        self.color_space = color_space_name
+        self.resize_mode = resize_mode
+        self.device = resolve_device(device)
+
+    def get_frames_per_second(self):
+        return self.fps
+
+    def get_video_size(self):
+        n, h, w = map(int, (self.test_video[0], self.test_video[5], self.test_video[6]))
+        return h, w, n
+
+    def get_test_frame(self, frame, device=None):
+        return self._get_frame(self.test_video, frame)
+
+    def get_reference_frame(self, frame, device=None):
+        return self._get_frame(self.reference_video, frame)
+
+    def _get_frame(self, from_array: np.ndarray, idx: int) -> torch.Tensor:
+        from fovvideovdp_tpu_torch.io import resize
+        from fovvideovdp_tpu_torch.io import yuv as yuv_io
+
+        n, h, w, bit_depth, chroma_ss, resize_h, resize_w = map(int, from_array[:7])
+        up = lambda a: host_tensor(a).to(self.device)  # noqa: E731
+        if self.yuv:
+            y_pixels = h * w
+            uv_shape = (h // 2, w // 2) if str(chroma_ss) == "420" else (h, w)
+            uv_pixels = uv_shape[0] * uv_shape[1]
+            fp = y_pixels + 2 * uv_pixels
+            base = 7 + idx * fp
+            Y = up(from_array[base: base + y_pixels].reshape(h, w))
+            u = up(from_array[base + y_pixels: base + y_pixels + uv_pixels].reshape(uv_shape))
+            v = up(from_array[base + y_pixels + uv_pixels: base + fp].reshape(uv_shape))
+            RGB = torch.clamp(yuv_io.yuv_to_rgb(Y, u, v, bit_depth, str(chroma_ss),
+                                                bt2020=(self.color_space == "bt2020nc")),
+                              0.0, 1.0).permute(2, 0, 1)
+            if (resize_h != h) or (resize_w != w):
+                RGB = resize(RGB, (resize_h, resize_w), self.resize_mode)
+        else:
+            fp = resize_h * resize_w * 3
+            raw = from_array[7 + idx * fp: 7 + (idx + 1) * fp].reshape(resize_h, resize_w, 3)
+            # packed RGB is full-range in its container type (the header's
+            # bit_depth applies to the YUV layout only)
+            max_value = 255.0 if from_array.dtype == np.uint8 else 65535.0
+            RGB = (up(raw.astype(np.float32)) / max_value).permute(2, 0, 1)
+        L = channels_to_luminance(lambda c: RGB[c], self.dm_photometry,
+                                  self.color_to_luminance)
+        return L[None, None, None]      # (1, 1, 1, H, W)

@@ -16,7 +16,8 @@ setup(
     package_data={
         "fovvideovdp_tpu": ["data/*.json", "data/*.npz",
                             "data/xla_seed_cache/*"],
-        "fovvideovdp_tpu_torch": ["data/*.json", "data/*.npz", "csrc/*.cu*"],
+        "fovvideovdp_tpu_torch": ["data/*.json", "data/*.npz", "csrc/*.cu*",
+                                  "native/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[
@@ -32,6 +33,7 @@ setup(
         "torch": ["torch"],
     },
     entry_points={
-        "console_scripts": ["fvvdp=fovvideovdp_tpu.run_fvvdp:main"],
+        "console_scripts": ["fvvdp=fovvideovdp_tpu.run_fvvdp:main",
+                            "fvvdp-torch=fovvideovdp_tpu_torch.run_fvvdp:main"],
     },
 )

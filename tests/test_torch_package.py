@@ -841,3 +841,98 @@ def test_card_moving_gaze_matches_cpu_and_launches_its_kernel(cuda, route):
     if route == "heatmap":
         np.testing.assert_allclose(s_gpu["heatmap"].astype(np.float32),
                                    s_cpu["heatmap"].astype(np.float32), atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# On the card: the file sources and the native reader
+# ---------------------------------------------------------------------------
+
+def _write_yuv(path, bits, seed, h=48, w=64, frames=6):
+    rng = np.random.RandomState(seed)
+    d = 2 ** (bits - 8)
+    dt = np.uint8 if bits == 8 else np.uint16
+    with open(path, "wb") as f:
+        for _ in range(frames):
+            f.write(rng.randint(16 * d, 236 * d, (h, w)).astype(dt).tobytes())
+            f.write(rng.randint(16 * d, 241 * d, (2, h // 2, w // 2)).astype(dt).tobytes())
+    return str(path)
+
+
+@pytest.mark.gpu
+def test_native_reader_fills_a_pinned_buffer(cuda, tmp_path):
+    from fovvideovdp_tpu_torch import native
+    path = _write_yuv(tmp_path / "clip_64x48_10b_420_709_30fps.yuv", 10, 0)
+    frames = np.fromfile(path, dtype=np.uint16).reshape(6, -1)
+    r = native.NativeYuvReader(path, 64, 48, 10, "420")
+    buf = torch.empty(6 * r.frame_bytes, dtype=torch.uint8, pin_memory=True)
+    assert buf.is_pinned()
+    r.read_block(0, 6, out=buf)
+    dev = buf.to(cuda, non_blocking=True)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(dev.cpu().numpy().view(np.uint16).reshape(6, -1), frames)
+    r.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", [(8, "709", "standard_fhd", None),
+                                 (10, "2020", "standard_hdr_pq", "bicubic")],
+                         ids=["8b-709", "10b-pq-resized"])
+def test_yuv_source_on_the_card_matches_the_cpu(cuda, tmp_path, fmt):
+    """Luminance blocks at rtol 1e-4, JOD at 1e-4, the default route's kernels
+    launched, and the blocks served through the prefetch in any block size."""
+    from fovvideovdp_tpu_torch.video_source_yuv import fvvdp_video_source_yuv_file
+    bits, space, display, resize = fmt
+    names = [_write_yuv(tmp_path / f"{t}_64x48_{bits}b_420_{space}_30fps.yuv", bits, k)
+             for k, t in enumerate(("test", "ref"))]
+    kw = dict(display_photometry=display, full_screen_resize=resize, resize_resolution=(96, 72))
+    card = fvvdp_video_source_yuv_file(*names, device=cuda, **kw)
+    cpu = fvvdp_video_source_yuv_file(*names, device="cpu", **kw)
+    for a, b in zip(card.get_luminance_block(0, 3), cpu.get_luminance_block(0, 3)):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4)
+    for a, b in zip(card.get_indexed_luminance_block([5, 0, 5]),
+                    cpu.get_indexed_luminance_block([5, 0, 5])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4)
+    q_cpu, _ = fvvdp(display_name=display, device="cpu").predict_video_source(
+        fvvdp_video_source_yuv_file(*names, device="cpu", **kw))
+    for block in (2, 4, None):
+        cuda_ops.reset_launch_counts()
+        q_card, _ = fvvdp(display_name=display, device=cuda, block_frames=block
+                          ).predict_video_source(
+            fvvdp_video_source_yuv_file(*names, device=cuda, **kw))
+        counts = cuda_ops.launch_counts()
+        assert all(counts[k] > 0 for k in ("temporal_pair", "gausspyr_reduce",
+                                          "expand_score2")), counts
+        assert abs(q_card - q_cpu) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preload", [False, True])
+def test_pipe_source_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch, preload):
+    import json
+    import stat
+    from fovvideovdp_tpu_torch.video_source_file import fvvdp_video_source_file
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    for name, body in (
+            ("ffprobe", "import sys\nprint(open(sys.argv[-1] + '.probe.json').read())\n"),
+            ("ffmpeg", "import sys\npath = sys.argv[sys.argv.index('-i') + 1]\n"
+                       "sys.stdout.buffer.write(open(path, 'rb').read())\n")):
+        exe = bindir / name
+        exe.write_text(f"#!{sys.executable}\n{body}")
+        os.chmod(exe, os.stat(exe).st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    vids = []
+    for k, tag in enumerate(("tst", "ref")):
+        vid = _write_yuv(tmp_path / f"{tag}.mp4", 8, k)
+        (tmp_path / f"{tag}.mp4.probe.json").write_text(json.dumps({"streams": [{
+            "codec_type": "video", "width": 64, "height": 48, "pix_fmt": "yuv420p",
+            "nb_frames": "6", "r_frame_rate": "30/1"}]}))
+        vids.append(vid)
+    q = {}
+    for dev in (cuda, "cpu"):
+        vs = fvvdp_video_source_file(*vids, display_photometry="standard_fhd", device=dev,
+                                     preload=preload)
+        q[str(dev)] = fvvdp(display_name="standard_fhd", device=dev,
+                            block_frames=4).predict_video_source(vs)[0]
+    assert abs(q["cuda"] - q["cpu"]) <= 1e-4
