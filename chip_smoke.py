@@ -61,6 +61,24 @@ Phases, each raising on failure:
   8. per-channel LUTs: the omega = 5 LUT cut by its last Y knot, the 4K image
      and 8 frames (band_score launches twice per level per block); a 1080p
      clip against device="cpu";
+  8b. the differentiable path, each kernel's wrapper behind its
+     torch.autograd.Function (the backward recomputes the plain version):
+     traced_image (a seeded 4K RGB pair: predict_traced against predict
+     within 1e-4 JOD, a finite non-zero gradient, 5 Adam steps lowering the
+     loss at every step, forward and forward + backward times, peak memory;
+     reduce and expand_score2 launch, the backward launches nothing);
+     traced_grad_vs_cpu (a 1080p image and an 8-frame clip under
+     standard_fhd: the card's gradient against device="cpu", max |dg| /
+     max |g| <= 1e-4); traced_video (16 frames of the 4K clip with and
+     without use_checkpoints: the same gradient within 1e-6, temporal_pair
+     with an empty carry, reduce and expand_score2 launch, the checkpointed
+     scoring twice; times, peaks, the JOD against predict); traced_foveated
+     (the 4K image foveated at the centre: expand_contrast and mov_score
+     launch; against the CPU at 1080p); torch_loss (fvvdp_torch_loss at
+     1080p with grad_ref: 3 Adam steps, the value under no_grad with the
+     forward's launches); backward_ms (each Function at the shapes of one
+     4K block: the kernel's forward beside the plain VJP's time, its chunk
+     of frames and its peak);
   9. the kernels line, then the result line.
 
 Every path has its own expectation of which kernels must launch and which
@@ -87,6 +105,11 @@ times the ways of putting the 4K clip's raw pair on the card in turns (the
 pageable copy, the package's staged copy at three chunk sizes, a page-locked
 caller buffer), the host transpose of that pair, and the source's build
 resident and host-resident; one JSON line.
+
+    python3 chip_smoke.py --traced
+
+runs phases 1, 2 and 8b only (the differentiable path), and prints no
+result line.
 """
 import contextlib
 import functools
@@ -1227,6 +1250,367 @@ def file_source_phases(fv, test_v, ref_v, dev):
         raise AssertionError(f"packed array: card {res[str(dev)][0]} vs CPU {res['cpu'][0]}")
 
 
+# ---------------------------------------------------------------------------
+# 8b. the differentiable path: predict_traced, loss, use_checkpoints and the
+# torch loss; each kernel's wrapper goes through its autograd Function
+# ---------------------------------------------------------------------------
+
+TRACED_FRAMES = 16        # depth of the traced 4K clip
+HD_H, HD_W = 1080, 1920   # standard_fhd, the card-against-CPU size
+# card against the CPU: max |dg| over max |g| where both devices score the
+# same luminance; where the sRGB EOTF runs on each (CUDA's powf and the
+# CPU's differ by an ulp), the relative L2 norm of the difference, because
+# an ulp moves the gradient's jumps (see grad_vs_cpu)
+GRAD_VS_CPU_TOL = 1e-4
+GRAD_VS_CPU_L2_TOL = 1e-3
+CKPT_TOL = 1e-6           # the same, with and without use_checkpoints
+TRACED_JOD_TOL = 1e-4     # predict_traced against predict
+ALL_KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
+               "band_score", "band_score2", "band_score2_fov", "mov_score")
+
+
+def lum_pair(h, w, frames=None, seed=0, noise=0.05):
+    """A luminance pair in cd/m^2 on the host, (h, w) or (h, w, frames),
+    inside [0.5, 200]: a reference of log-uniform noise and a test with 5 %
+    multiplicative noise, from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (h, w) if frames is None else (h, w, frames)
+    ref = 0.5 * 400.0 ** torch.rand(shape, generator=g)
+    return torch.clamp(ref * (1.0 + noise * torch.randn(shape, generator=g)), 0.5, 200.0), ref
+
+
+def absolute_fhd(**kw):
+    """standard_fhd's geometry with content given in cd/m^2: no EOTF, so the
+    card and the CPU score bit-identical luminance."""
+    return dict(display_photometry=fvt.fvvdp_display_photo_absolute(L_max=200.0, L_min=0.2),
+                display_geometry=fvt.fvvdp_display_geometry.load("standard_fhd"), **kw)
+
+
+def rgb_pair(h, w, frames=None, seed=0, noise=0.05):
+    """A display-encoded RGB pair in [0, 1] on the host, (h, w, 3) or
+    (h, w, 3, frames): a reference of uniform noise and a test with Gaussian
+    noise added and clipped, from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (h, w, 3) if frames is None else (h, w, 3, frames)
+    ref = torch.rand(shape, generator=g)
+    return torch.clamp(ref + noise * torch.randn(shape, generator=g), 0.0, 1.0), ref
+
+
+def not_launched(must):
+    return tuple(k for k in ALL_KERNELS if k not in must)
+
+
+def traced_grad(fv, test, ref, dev, **call):
+    """(loss, d loss / d test, launches of the forward, launches of forward
+    and backward) of fv.loss on copies of the pair on ``dev``."""
+    x = test.to(dev, copy=True).requires_grad_()
+    cuda_ops.reset_launch_counts()
+    loss = fv.loss(x, ref.to(dev), **call)
+    fwd = cuda_ops.launch_counts()
+    loss.backward()
+    return float(loss.detach()), x.grad, fwd, cuda_ops.launch_counts()
+
+
+def rel_grad_err(got, want):
+    want = want.double().cpu()
+    return float((got.double().cpu() - want).abs().max() / want.abs().max())
+
+
+def traced_costs(fv, test, ref, runs=3, **call):
+    """Warm forward and forward + backward times (median of ``runs``, CUDA
+    events, ms) of fv.loss with the test image requiring grad, and the
+    peak memory of one forward + backward above what was allocated before."""
+    x = test.clone().requires_grad_()
+    fwd_ms = time_ms(lambda: fv.loss(x, ref, **call), runs=runs, warmup=1)
+    both_ms = time_ms(lambda: fv.loss(x, ref, **call).backward(), runs=runs, warmup=1)
+    x.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fv.loss(x, ref, **call).backward()
+    torch.cuda.synchronize()
+    return fwd_ms, both_ms, torch.cuda.max_memory_allocated() - base
+
+
+def grad_vs_cpu(kw, test, ref, dev, same_luminance=True, **call):
+    """The loss and its gradient on the card against the same call with
+    device="cpu" (the plain versions throughout): max |dg| / max |g| <=
+    GRAD_VS_CPU_TOL when both score the same luminance.  The gradient jumps
+    where the masking's min(|T|, |R|) changes sides; at an exact tie it
+    splits, as in JAX.  Where the EOTF runs on each device, an ulp of powf
+    can break or make such a tie, which moves a few values of the gradient
+    by up to a few tenths of their own size, so there the bar is on the
+    relative L2 norm of the difference, GRAD_VS_CPU_L2_TOL."""
+    card, cpu = [], []
+    metrics = [fvt.fvvdp(device=d, **kw) for d in (dev, torch.device("cpu"))]
+    if kw.get("foveated"):
+        # the geometry's static maps differ by up to 2e-4 relative between the
+        # card's tan and the CPU's (ROADMAP section 3, magnification ulp),
+        # which moves S as much: the CPU scores with the card's maps
+        h, w = test.shape[:2]
+        core_card, core_cpu = (m._get_core(w, h) for m in metrics)
+        core_cpu._band_rho = [t.cpu() for t in core_card._band_rho]
+        core_cpu._band_view_dir = [t.cpu() for t in core_card._band_view_dir]
+    for fv, out in zip(metrics, (card, cpu)):
+        t0 = time.perf_counter()
+        loss, g, _, _ = traced_grad(fv, test, ref, fv.device, **call)
+        out += [loss, g.cpu().double(), time.perf_counter() - t0]
+    diff = (card[1] - cpu[1]).abs()
+    err = float(diff.max() / cpu[1].abs().max())
+    l2 = float(diff.norm() / cpu[1].norm())
+    ok = err <= GRAD_VS_CPU_TOL if same_luminance else l2 <= GRAD_VS_CPU_L2_TOL
+    if not ok or not bool(torch.isfinite(card[1]).all()):
+        raise AssertionError(f"gradient on the card against the CPU ({kw}, {call}): "
+                             f"max |dg| / max |g| = {err}, relative L2 {l2}")
+    return dict(loss=card[0], loss_cpu=cpu[0], rel_grad_err=err, rel_l2_err=l2,
+                over_1e4_of_max=int((diff > 1e-4 * cpu[1].abs().max()).sum()),
+                values=diff.numel(),
+                tolerance=(f"max |dg| / max |g| <= {GRAD_VS_CPU_TOL:g}" if same_luminance
+                           else f"|dg|_2 / |g|_2 <= {GRAD_VS_CPU_L2_TOL:g}"),
+                card_s=card[2], cpu_s=cpu[2])
+
+
+def traced_image_phase(dev, smi):
+    """The 4K image: predict_traced against predict, a finite non-zero
+    gradient, 5 Adam steps that lower the loss at every step, times and
+    peak memory.  Returns the pair."""
+    fv = fvt.fvvdp(display_name="standard_4k")
+    test, ref = (t.to(dev) for t in rgb_pair(H, W))
+    call = dict(dim_order="HWC")
+    (q_pred, _), pred_launches = counted(lambda: fv.predict(test, ref, **call))
+    loss, g, fwd, launches = traced_grad(fv, test, ref, dev, **call)
+    must = ("gausspyr_reduce", "expand_score2")
+    expect_launches("traced image", launches, must, not_launched(must))
+    if launches != fwd or fwd != pred_launches:
+        raise AssertionError(f"traced image: forward {fwd}, with the backward {launches}, "
+                             f"predict {pred_launches}: the backward launches no kernel")
+    q_traced = 10.0 - loss
+    g_max = float(g.abs().max())
+    if not abs(q_traced - q_pred) <= TRACED_JOD_TOL or not bool(torch.isfinite(g).all()) \
+            or not g_max > 0.0:
+        raise AssertionError(f"traced 4K image: JOD {q_traced} against predict's {q_pred}, "
+                             f"max |g| {g_max}")
+    fwd_ms, both_ms, peak = traced_costs(fv, test, ref, **call)
+    x = test.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=2e-3)
+    losses = []
+    for _ in range(5):
+        opt.zero_grad()
+        step = fv.loss(x, ref, **call)
+        step.backward()
+        opt.step()
+        losses.append(float(step.detach()))
+    with torch.no_grad():
+        losses.append(float(fv.loss(x, ref, **call)))
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"Adam on the traced 4K image: losses {losses} do not fall "
+                             f"at every step")
+    emit(dict(phase="traced_image", nvidia_smi=smi, shape=[H, W, 3], jod=q_traced,
+              jod_predict=q_pred, tolerance=f"|dJOD| <= {TRACED_JOD_TOL:g}",
+              grad_max_abs=g_max, adam_losses=losses, forward_ms=fwd_ms,
+              forward_backward_ms=both_ms, peak_bytes=peak, launches=launches))
+    return test, ref
+
+
+def traced_grad_vs_cpu_phase(dev, smi):
+    """1080p: an image and an 8-frame clip, the card's gradient against the
+    CPU's, in luminance (the same input to the scoring on both) and as
+    display-encoded RGB under standard_fhd."""
+    video_call = dict(frames_per_second=FPS)
+    out = dict(
+        image=grad_vs_cpu(absolute_fhd(), *lum_pair(HD_H, HD_W, seed=1), dev, dim_order="HW"),
+        video=grad_vs_cpu(absolute_fhd(), *lum_pair(HD_H, HD_W, 8, seed=2), dev,
+                          dim_order="HWF", **video_call),
+        image_rgb=grad_vs_cpu(dict(display_name="standard_fhd"),
+                              *rgb_pair(HD_H, HD_W, seed=1), dev, False, dim_order="HWC"),
+        video_rgb=grad_vs_cpu(dict(display_name="standard_fhd"),
+                              *rgb_pair(HD_H, HD_W, 8, seed=2), dev, False,
+                              dim_order="HWCF", **video_call))
+    emit(dict(phase="traced_grad_vs_cpu", nvidia_smi=smi, shape=[HD_H, HD_W],
+              frames_video=8, **out))
+
+
+def traced_video_phase(dev, smi, test_v, ref_v):
+    """The first TRACED_FRAMES frames of the 4K clip, with and without
+    use_checkpoints: the same gradient, the launches, times and peaks."""
+    n = TRACED_FRAMES
+    test = torch.as_tensor(test_v[..., :n], device=dev).to(torch.float32) / 255.0
+    ref = torch.as_tensor(ref_v[..., :n], device=dev).to(torch.float32) / 255.0
+    call = dict(dim_order="HWCF", frames_per_second=FPS)
+    must = ("temporal_pair", "gausspyr_reduce", "expand_score2")
+    runs, grads = {}, {}
+    for ckpt in (False, True):
+        fv = fvt.fvvdp(display_name="standard_4k", use_checkpoints=ckpt)
+        loss, grads[ckpt], fwd, launches = traced_grad(fv, test, ref, dev, **call)
+        name = "traced video" + (" with checkpoints" if ckpt else "")
+        expect_launches(name, launches, must, not_launched(must))
+        # the checkpointed scoring relaunches its kernels in the backward;
+        # the temporal stage lies outside it
+        want = {k: v * (2 if ckpt and k != "temporal_pair" else 1) for k, v in fwd.items()}
+        if launches != want:
+            raise AssertionError(f"{name}: forward {fwd}, with the backward {launches}")
+        fwd_ms, both_ms, peak = traced_costs(fv, test, ref, **call)
+        runs["checkpoints" if ckpt else "plain"] = dict(
+            loss=loss, forward_ms=fwd_ms, forward_backward_ms=both_ms, peak_bytes=peak,
+            peak_bytes_per_px_frame=peak / (n * H * W), launches=launches)
+    q_pred, _ = fvt.fvvdp(display_name="standard_4k").predict(test, ref, **call)
+    err = rel_grad_err(grads[True], grads[False])
+    q_traced = 10.0 - runs["plain"]["loss"]
+    emit(dict(phase="traced_video", nvidia_smi=smi, shape=[H, W, 1, n], jod=q_traced,
+              jod_predict=q_pred, checkpoints_rel_grad_err=err,
+              tolerance=f"max |dg| / max |g| <= {CKPT_TOL:g}, |dJOD| <= {TRACED_JOD_TOL:g}",
+              **runs))
+    if not err <= CKPT_TOL or not abs(q_traced - q_pred) <= TRACED_JOD_TOL \
+            or not bool(torch.isfinite(grads[False]).all()):
+        raise AssertionError(f"traced 4K video: checkpoints change the gradient by {err}, "
+                             f"JOD {q_traced} against predict's {q_pred}")
+
+
+def traced_foveated_phase(dev, smi, test, ref):
+    """The 4K image foveated at the centre (the moving-gaze route), and its
+    gradient against the CPU at 1080p."""
+    fv = fvt.fvvdp(display_name="standard_4k", foveated=True)
+    call = dict(dim_order="HWC")
+    loss, g, fwd, launches = traced_grad(fv, test, ref, dev, **call)
+    must = ("gausspyr_reduce", "expand_contrast", "mov_score")
+    expect_launches("traced foveated image", launches, must, not_launched(must))
+    q_pred, _ = fv.predict(test, ref, fixation_point=np.array([[W // 2, H // 2]]), **call)
+    q_traced = 10.0 - loss
+    if not abs(q_traced - q_pred) <= TRACED_JOD_TOL or not bool(torch.isfinite(g).all()) \
+            or launches != fwd:
+        raise AssertionError(f"traced foveated 4K image: JOD {q_traced} against predict's "
+                             f"{q_pred}, launches {fwd} then {launches}")
+    fwd_ms, both_ms, peak = traced_costs(fv, test, ref, **call)
+    hd = grad_vs_cpu(absolute_fhd(foveated=True), *lum_pair(HD_H, HD_W, seed=3), dev,
+                     dim_order="HW")
+    emit(dict(phase="traced_foveated", nvidia_smi=smi, shape=[H, W, 3], jod=q_traced,
+              jod_predict_centre_gaze=q_pred, forward_ms=fwd_ms, forward_backward_ms=both_ms,
+              peak_bytes=peak, launches=launches, vs_cpu_1080p=hd))
+
+
+def torch_loss_phase(dev, smi):
+    """fvvdp_torch_loss at 1080p with grad_ref: 3 Adam steps on the test
+    image, the reference's gradient, and the value under no_grad."""
+    fv = fvt.fvvdp(display_name="standard_fhd")
+    loss_fn = fvt.fvvdp_torch_loss(fv, dim_order="HWC", grad_ref=True)
+    test, ref = (t.to(dev) for t in rgb_pair(HD_H, HD_W, seed=4))
+    x, r = test.clone().requires_grad_(), ref.clone().requires_grad_()
+    opt = torch.optim.Adam([x], lr=2e-3)
+    losses = []
+    for _ in range(3):
+        opt.zero_grad()
+        r.grad = None
+        loss = loss_fn(x, r)
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    r_max = float(r.grad.abs().max())
+    if not losses[-1] < losses[0] or not bool(torch.isfinite(r.grad).all()) or not r_max > 0:
+        raise AssertionError(f"torch loss: losses {losses}, max |d/d ref| {r_max}")
+    with torch.no_grad():
+        v_eval, eval_launches = counted(lambda: loss_fn(x, r))
+    v_train, train_launches = counted(lambda: loss_fn(x, r))
+    if float(v_eval) != float(v_train.detach()) or eval_launches != train_launches \
+            or v_eval.grad_fn is not None or v_train.grad_fn is None:
+        raise AssertionError(f"torch loss under no_grad: {float(v_eval)} ({eval_launches}) "
+                             f"against {float(v_train.detach())} ({train_launches})")
+    emit(dict(phase="torch_loss", nvidia_smi=smi, shape=[HD_H, HD_W, 3], losses=losses,
+              ref_grad_max_abs=r_max, no_grad_value=float(v_eval),
+              no_grad_launches=eval_launches))
+
+
+def backward_ms_phase(dev, smi):
+    """Each Function at the 4K main path's shapes (one block of the clip,
+    every level): the kernel's forward time beside the backward's, the
+    plain version's VJP recomputed a chunk of frames at a time, CUDA events,
+    median of 3; the chunk and the backward's peak above what was
+    allocated before."""
+    from fovvideovdp_tpu_torch.ops.cuda import _autograd
+    fv = fvt.fvvdp(display_name="standard_4k")
+    core = fv._get_core(W, H)
+    fv_fov = fvt.fvvdp(display_name="standard_4k", foveated=True)
+    core_fov = fv_fov._get_core(W, H)
+    _, _, vs, (ct, nt, cr, nr), taps, B = first_block(fv, dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = {k: dict(forward_ms=0.0, backward_ms=0.0, calls=0, chunk_frames=[],
+                    peak_bytes=0) for k in ALL_KERNELS}
+
+    def case(name, fn, args, diff):
+        op = fn.op
+        outs = op.run(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        cot = tuple(torch.randn(o.shape, generator=g, device=dev) for o in outs)
+        del outs
+        frames = _autograd.recompute_frames(op, args)
+        row = rows[name]
+        row["forward_ms"] += time_ms(lambda: op.run(*args), runs=3, warmup=1)
+        row["backward_ms"] += time_ms(lambda: _autograd.vjp(op, args, diff, cot, frames),
+                                      runs=3, warmup=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _autograd.vjp(op, args, diff, cot, frames)
+        torch.cuda.synchronize()
+        row["peak_bytes"] = max(row["peak_bytes"], torch.cuda.max_memory_allocated() - base)
+        row["calls"] += 1
+        row["chunk_frames"].append(frames)
+
+    case("temporal_pair", tmp.temporal_pair, [ct, nt, cr, nr, taps], (0, 1, 2, 3))
+    R = tmp.temporal_pair(ct, nt, cr, nr, taps)
+    del ct, nt, cr, nr, vs
+    gpyr = core.plan.gaussian_pyramid(R)
+    del R
+    gaze_dir = block_gaze(core_fov, B)
+    for bb in range(core.plan.height):
+        fine, coarse = gpyr[bb], gpyr[bb + 1]
+        case("gausspyr_reduce", red.gausspyr_reduce, [fine], (0,))
+        case("expand_score2", bp.expand_score2,
+             [fine, coarse, core._score_tables[bb], core._meta[bb], 1], (0, 1))
+        case("expand_contrast", ec.expand_contrast, [fine, coarse, 1], (0, 1))
+        band, L_bkg = ec.expand_contrast(fine, coarse)
+        L = L_bkg[:, 0]
+        meta, tabs = core._meta[bb], core._score_tables[bb]
+        for cc in range(2):
+            case("band_score", bs.band_score, [band[:, 2 * cc], band[:, 2 * cc + 1], L,
+                                               tabs[cc], meta, (meta.q_s, meta.q_t)[cc]],
+                 (0, 1, 2))
+        case("band_score2", bs.band_score2, [band, L, tabs, meta], (0, 1))
+        ts, tt = core_fov.fov_tables((float(W // 2), float(H // 2)))[bb]
+        case("band_score2_fov", bs.band_score2_fov, [band, L, ts, tt, core_fov._fov_meta[bb]],
+             (0, 1))
+        d = core_fov._moving_band_data(bb)
+        case("mov_score", ms.band_score2_mov, [band, L, core_fov._band_view_dir[bb], d["t_r"],
+                                               gaze_dir, d["V2"], d["V2_5"], d["meta"]],
+             (0, 1))
+        del band, L_bkg, L, ts, tt
+    core_fov.drop_fov_tables()
+    del gpyr
+    torch.cuda.empty_cache()
+    emit(dict(phase="backward_ms", nvidia_smi=smi, block_frames=B, shape=[B, 4, H, W],
+              note="forward: the kernel; backward: the plain version's VJP, sums over "
+                   "the levels of one block", kernels=rows))
+    return rows
+
+
+def traced_phases(dev, smi):
+    """Phase 8b, each raising on failure.  Returns backward_ms's rows."""
+    test, ref = traced_image_phase(dev, smi)
+    torch.cuda.empty_cache()
+    traced_grad_vs_cpu_phase(dev, smi)
+    torch.cuda.empty_cache()
+    test_v, ref_v = synth_clip(H, W, TRACED_FRAMES)
+    traced_video_phase(dev, smi, test_v, ref_v)
+    torch.cuda.empty_cache()
+    traced_foveated_phase(dev, smi, test, ref)
+    del test, ref
+    torch.cuda.empty_cache()
+    torch_loss_phase(dev, smi)
+    torch.cuda.empty_cache()
+    rows = backward_ms_phase(dev, smi)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -1237,6 +1621,7 @@ def main():
         return time_kernels(dev)
     if "--time-upload" in sys.argv:
         return time_upload(dev)
+    traced_only = "--traced" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -1259,6 +1644,9 @@ def main():
         _lib.kernel_fn(k)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_lib.build_seconds))
+    if traced_only:
+        traced_phases(dev, smi)
+        return 0
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
     fv = fvt.fvvdp(display_name="standard_4k")
@@ -1684,9 +2072,18 @@ def main():
     if not abs(q_hd - q_hd_cpu) <= 1e-3:
         raise AssertionError(f"per-channel LUTs at 1080p: card {q_hd} vs CPU {q_hd_cpu}")
 
+    # 8b. the differentiable path
+    del fv_pc, fv_h, fv_hd, fv_hd_cpu
+    torch.cuda.empty_cache()
+    backward = traced_phases(dev, smi)
+
     # 9. kernels line, result line
     print(smi, flush=True)
-    emit(dict(kernels=kernel_summary(cases["rows"], path_launches)))
+    summary = kernel_summary(cases["rows"], path_launches)
+    for row in summary:
+        # the Function's backward (the plain VJP) at the same block's shapes
+        row["backward_plain_ms"] = backward[row["name"]]["backward_ms"]
+    emit(dict(kernels=summary))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))
     return 0

@@ -5,7 +5,9 @@ reference.  This package imports torch and numpy only.  It scores images
 and videos on a CUDA card through hand-written kernels (``ops/cuda``,
 sources in ``csrc/``): the default configuration, foveation with a fixed or
 a per-frame gaze, heatmaps and per-channel CSF LUTs.  ``device="cpu"``
-runs the kernels' plain PyTorch versions instead.  Files are read by
+runs the kernels' plain PyTorch versions instead.  ``fvvdp.predict_traced``,
+``fvvdp.loss`` and ``fvvdp_torch_loss`` make the metric a differentiable
+training loss, each kernel behind a ``torch.autograd.Function``.  Files are read by
 ``fvvdp_video_source_file`` (images, raw ``.yuv``, videos through ffmpeg or
 OpenCV) and scored from the command line by ``fvvdp-torch``
 (``python -m fovvideovdp_tpu_torch.run_fvvdp``).
@@ -19,6 +21,7 @@ from fovvideovdp_tpu_torch.display_model import (
 )
 from fovvideovdp_tpu_torch.fvvdp import fvvdp
 from fovvideovdp_tpu_torch.io.images import load_image_as_array
+from fovvideovdp_tpu_torch.torch_interop import fvvdp_torch_loss
 from fovvideovdp_tpu_torch.video_source import (
     fvvdp_video_source,
     fvvdp_video_source_array,
@@ -32,6 +35,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "fvvdp",
+    "fvvdp_torch_loss",
     "fvvdp_display_photometry",
     "fvvdp_display_photo_eotf",
     "fvvdp_display_photo_absolute",

@@ -314,7 +314,7 @@ class MetricCore:
             # image path: zero transient channels score exactly 0 through
             # the pipeline (D(0,0) = 0)
             R = torch.cat([R, torch.zeros_like(R)], dim=1)
-        return self._score_frames_fused(R), None
+        return self._score_frames_fused(R, temp_ch), None
 
     def _q_from_sums(self, ssum: torch.Tensor, bb: int) -> torch.Tensor:
         """(F, k) sums of D^beta over the band's pixels -> (k, F) norms."""
@@ -322,14 +322,25 @@ class MetricCore:
         h, w = self.plan.level_shapes[bb]
         return torch.pow(ssum, 1.0 / beta).T / (float(h * w) ** (1.0 / beta))
 
-    def _score_frames_fused(self, R: torch.Tensor) -> torch.Tensor:
+    def _q_pair(self, ssum2: torch.Tensor, bb: int, temp_ch: int) -> torch.Tensor:
+        """(F, 2) sums of both channels -> (2, F) norms.  An image's transient
+        row is the constant 0 its zero contrast sums to, never the root of
+        that sum: the infinite slope of x^(1/beta) at 0 would turn the
+        gradient through L_bkg into NaN (the JAX package's unfused path
+        appends constant zeros the same way)."""
+        if temp_ch == 2:
+            return self._q_from_sums(ssum2, bb)
+        Q = self._q_from_sums(ssum2[:, :1], bb)
+        return torch.cat([Q, torch.zeros_like(Q)], dim=0)
+
+    def _score_frames_fused(self, R: torch.Tensor, temp_ch: int) -> torch.Tensor:
         plan = self.plan
         gpyr = plan.gaussian_pyramid(R)
         Q_rows = []
         for bb in range(plan.height):
             ssum2 = bp.expand_score2(gpyr[bb], gpyr[bb + 1], self._score_tables[bb],
                                      self._meta[bb])               # (F, 2)
-            Q_rows.append(self._q_from_sums(ssum2, bb))
+            Q_rows.append(self._q_pair(ssum2, bb, temp_ch))
         return torch.stack(Q_rows, dim=0)                         # (n_bands, 2, F)
 
     def _score_frames_banded(self, R: torch.Tensor, temp_ch: int, fov_tables,
@@ -352,7 +363,7 @@ class MetricCore:
                 else:
                     ssum = bs.band_score2_fov(band, L, fov_tables[bb][0], fov_tables[bb][1],
                                               self._fov_meta[bb])     # (F, 2)
-                Q_rows.append(self._q_from_sums(ssum, bb))
+                Q_rows.append(self._q_pair(ssum, bb, temp_ch))
                 continue
             Q_cc = []
             for cc in range(temp_ch):

@@ -3,7 +3,8 @@
 Counterpart of ``fovvideovdp_tpu/fvvdp.py:68-213`` (constructor, config,
 display, cores), ``predict``, ``predict_video_source`` (image branch, the
 streaming loop, foveation with a fixed or a per-frame gaze, heatmaps on the
-host or the device), ``do_pooling_and_jods`` and ``write_features_to_json``
+host or the device), the differentiable ``predict_traced`` and ``loss``
+(``:1165-1242``), ``do_pooling_and_jods`` and ``write_features_to_json``
 (``:1283-1295``).  The default device is the
 CUDA card; ``device="cpu"`` runs every kernel's plain version instead.
 
@@ -11,16 +12,20 @@ Frames are scored in blocks: each block's temporal window is the fl-1
 carried frames plus the new block, and ``Q_per_ch`` stays on the device
 until pooling, which copies one scalar and the (n_bands, 2, F) table back.
 Heatmap frames leave the device block by block unless ``device_heatmap``
-keeps them there.
+keeps them there.  ``predict_traced`` scores a whole clip in one autograd
+graph instead: every kernel's wrapper goes through its
+``torch.autograd.Function`` there (``ops/cuda/_autograd.py``).
 """
 from __future__ import annotations
 
+import functools
 import json
 import logging
 from typing import Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from fovvideovdp_tpu_torch import utils
 from fovvideovdp_tpu_torch.core import MetricCore
@@ -30,7 +35,9 @@ from fovvideovdp_tpu_torch.display_model import (fvvdp_display_geometry,
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
-from fovvideovdp_tpu_torch.video_source import fvvdp_video_source_array, resolve_device
+from fovvideovdp_tpu_torch.video_source import (channels_to_luminance,
+                                                fvvdp_video_source_array, reshuffle_dims,
+                                                resolve_device)
 
 # Device bytes a block of B frames at H x W keeps live, per pixel-frame, by
 # the route the core takes (core.MetricCore.route).  "fused": the
@@ -98,8 +105,6 @@ class fvvdp:
             raise _unsupported("band_callback", "queue 1 item 3")
         if content_mapping is not None:
             raise _unsupported("content_mapping", "queue 1 item 3")
-        if use_checkpoints:
-            raise _unsupported("use_checkpoints", "queue 1 item 6")
 
         self.device = resolve_device(device)
         self.quiet = quiet
@@ -115,6 +120,9 @@ class fvvdp:
         self.color_space = color_space
         self.temp_padding = temp_padding
         self.block_frames = block_frames
+        # predict_traced recomputes the spatial scoring in the backward
+        # instead of keeping its graph (torch.utils.checkpoint)
+        self.use_checkpoints = bool(use_checkpoints)
 
         self.set_display_model(display_name, display_photometry=display_photometry,
                                display_geometry=display_geometry)
@@ -343,6 +351,91 @@ class fvvdp:
                 stats["heatmap"] = np.concatenate(heat_blocks, axis=0).transpose(
                     1, 0, 2, 3)[None]
         return float(Q_jod), stats
+
+    # ------------------------------------------------------------------
+    # differentiable path (the metric as a training loss)
+    # ------------------------------------------------------------------
+    def _traced_input(self, x, dim_order: str) -> torch.Tensor:
+        """A tensor keeps its graph and must be on the metric's device; an
+        array goes there.  Either becomes float32 in BCFHW."""
+        if torch.is_tensor(x):
+            dev = self.device
+            if dev.type == "cuda" and dev.index is None:    # "cuda": the current card
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if x.device != dev:
+                raise RuntimeError(f"predict_traced: the input is on {x.device}, the "
+                                   f"metric on {self.device}")
+            x = x.to(torch.float32)
+        else:
+            x = torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
+        return reshuffle_dims(x, dim_order, "BCFHW")
+
+    def predict_traced(self, test_cont, reference_cont, dim_order="BCFHW",
+                       frames_per_second=0, fixation_point=None) -> torch.Tensor:
+        """JOD of a whole clip in one autograd graph: differentiable with
+        respect to both inputs.  Returns a 0-d tensor on the metric's device.
+
+        Unlike ``predict``, which streams blocks under ``torch.no_grad``,
+        the clip is filtered and scored at once.  Inputs are
+        display-encoded floats (luminance when the photometry is absolute);
+        a tensor must lie on the metric's device.  ``use_checkpoints``
+        recomputes the spatial scoring in the backward
+        (``torch.utils.checkpoint``) instead of keeping its graph, as the
+        JAX package wraps it in ``jax.checkpoint``.  When foveated, the
+        fixation point (the centre by default; one (x, y) point, or one row
+        per frame) is a gaze per frame, scored on the moving-gaze route."""
+        x_t = self._traced_input(test_cont, dim_order)
+        x_r = self._traced_input(reference_cont, dim_order)
+        B, C, F, H, W = x_t.shape
+        if B != 1:
+            raise RuntimeError("predict_traced supports batch size 1; "
+                               "use predict_batch for batches of pairs")
+        if F > 1 and frames_per_second <= 0:
+            raise RuntimeError(
+                "When passing video sequences, you must set 'frames_per_second' parameter")
+        colorspaces = utils.json2dict(utils.config_files.find("color_spaces.json"))
+        rgb2y = [float(c) for c in colorspaces[self.color_space]["RGB2Y"]]
+
+        def to_lum(x):                                       # (F, H, W)
+            if C == 3:
+                return channels_to_luminance(lambda c: x[0, c], self.display_photometry,
+                                             rgb2y)
+            return self.display_photometry.forward(x[0, 0])
+
+        lum_t, lum_r = to_lum(x_t), to_lum(x_r)
+        core = self._get_core(W, H)
+        gaze = None
+        if self.foveated:
+            if fixation_point is None:
+                fixation_point = np.array([W // 2, H // 2])
+            fp = np.asarray(fixation_point, np.float32)
+            gaze = torch.tensor(np.broadcast_to(
+                fp.reshape(-1, 2)[-1:] if fp.ndim == 1 else fp, (F, 2)), device=self.device)
+
+        score = core.score_frames
+        if self.use_checkpoints:
+            score = functools.partial(torch.utils.checkpoint.checkpoint, core.score_frames,
+                                      use_reentrant=False)
+        if F == 1:
+            Q_per_ch, _ = score(torch.stack([lum_t[0], lum_r[0]], dim=0)[None], 1,
+                                None, gaze)
+        else:
+            fl = temporal_ops.filter_len_for_fps(frames_per_second)
+            taps = torch.as_tensor(temporal_ops.temporal_filters(
+                frames_per_second, fl, self.sustained_sigma, self.sustained_beta),
+                device=self.device)
+            idx = torch.as_tensor(temporal_ops.padding_indices(F, fl, self.temp_padding),
+                                  dtype=torch.int64, device=self.device)
+            # the whole padded clip is the window: the kernel's carry is empty
+            empty = lum_t.new_empty((0, H, W))
+            R = temporal_ops.temporal_channels_pair(empty, lum_t[idx], empty, lum_r[idx],
+                                                    taps)
+            Q_per_ch, _ = score(R, 2, None, gaze)
+        return self.do_pooling_and_jods(Q_per_ch)
+
+    def loss(self, test_cont, reference_cont, **kwargs) -> torch.Tensor:
+        """Differentiable training loss: 10 - Q_JOD (0 when imperceptible)."""
+        return 10.0 - self.predict_traced(test_cont, reference_cont, **kwargs)
 
     # ------------------------------------------------------------------
     def do_pooling_and_jods(self, Q_per_ch: torch.Tensor) -> torch.Tensor:

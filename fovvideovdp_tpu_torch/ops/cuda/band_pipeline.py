@@ -13,7 +13,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda import _autograd, _lib
 from fovvideovdp_tpu_torch.ops.cuda.band_score import (ScoreMeta, _kernel_scalars,
                                                         band_score_plain, frame_groups)
 from fovvideovdp_tpu_torch.ops.pyramid import _expand_contrast_plain, ceildiv
@@ -71,6 +71,15 @@ def plan_for(g_fine: torch.Tensor, g_coarse: torch.Tensor,
     return launch_plan(g_fine.shape, g_fine.data_ptr())
 
 
+# bytes the plain version's autograd graph keeps per frame, as a multiple of
+# one frame of its inputs (_autograd.KernelOp): 40 measured at 256 x 512
+# with saved-tensor hooks (the expanded level, the contrast and some twenty
+# planes per channel), and room for the backward's own
+GRAPH_BYTES = 48.0
+
+
+@_autograd.differentiable(expand_score2_plain, diff=(0, 1), framed=(0, 1),
+                          graph_bytes=GRAPH_BYTES)
 def expand_score2(g_fine: torch.Tensor, g_coarse: torch.Tensor,
                   tables: torch.Tensor, meta: ScoreMeta,
                   bkg_channel: int = 1) -> torch.Tensor:

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch.csf import _np, two_knots
-from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda import _autograd, _lib
 
 
 class ScoreMeta(NamedTuple):
@@ -243,6 +243,15 @@ def _on_cpu(name: str, t: torch.Tensor) -> bool:
     return False
 
 
+# bytes the plain version's autograd graph keeps per frame, as a multiple of
+# one frame of its inputs (_autograd.KernelOp): measured at 256 x 512 with
+# saved-tensor hooks (28, 32, and 62.4 for 19 knots: the telescoped sum keeps
+# two planes a knot), and room for the backward's own
+GRAPH_BYTES = {"band_score": 36.0, "band_score2": 40.0, "band_score2_fov": 72.0}
+
+
+@_autograd.differentiable(band_score_plain, diff=(0, 1, 2), framed=(0, 1, 2),
+                          graph_bytes=GRAPH_BYTES["band_score"])
 def band_score(T: torch.Tensor, R: torch.Tensor, L_bkg: torch.Tensor,
                table: torch.Tensor, meta: ScoreMeta, q: float) -> torch.Tensor:
     """One temporal channel of one band: T, R contrast and L_bkg, each
@@ -274,6 +283,8 @@ def band_score(T: torch.Tensor, R: torch.Tensor, L_bkg: torch.Tensor,
     return out[:, 0]
 
 
+@_autograd.differentiable(band_score2_plain, diff=(0, 1), framed=(0, 1),
+                          graph_bytes=GRAPH_BYTES["band_score2"])
 def band_score2(band: torch.Tensor, L_bkg: torch.Tensor, tables: torch.Tensor,
                 meta: ScoreMeta) -> torch.Tensor:
     """Both temporal channels of one band: band (F, 4, h, w) contrast stack
@@ -302,6 +313,8 @@ def band_score2(band: torch.Tensor, L_bkg: torch.Tensor, tables: torch.Tensor,
     return out
 
 
+@_autograd.differentiable(band_score2_fov_plain, diff=(0, 1), framed=(0, 1),
+                          graph_bytes=GRAPH_BYTES["band_score2_fov"])
 def band_score2_fov(band: torch.Tensor, L_bkg: torch.Tensor, tabs_s: torch.Tensor,
                     tabs_t: torch.Tensor, meta: ScoreMeta) -> torch.Tensor:
     """Both temporal channels with per-pixel CSF tables (fixed-gaze

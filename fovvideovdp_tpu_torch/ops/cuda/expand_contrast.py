@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda import _autograd, _lib
 from fovvideovdp_tpu_torch.ops.pyramid import _expand_contrast_plain, ceildiv
 
 
@@ -20,6 +20,14 @@ def expand_contrast_plain(g_fine, g_coarse, bkg_channel: int = 1):
     return _expand_contrast_plain(g_fine, g_coarse, tuple(g_fine.shape[-2:]), bkg_channel)
 
 
+# bytes the plain version's autograd graph keeps per frame, as a multiple of
+# one frame of its inputs (_autograd.KernelOp): 8 measured at 256 x 512
+# with saved-tensor hooks, and room for the backward's own
+GRAPH_BYTES = 12.0
+
+
+@_autograd.differentiable(expand_contrast_plain, diff=(0, 1), framed=(0, 1),
+                          graph_bytes=GRAPH_BYTES)
 def expand_contrast(g_fine: torch.Tensor, g_coarse: torch.Tensor,
                     bkg_channel: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Expand the coarse Gaussian level and turn the fine one into Weber

@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from fovvideovdp_tpu_torch.csf import _np, two_knots
-from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda import _autograd, _lib
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 
 
@@ -131,6 +131,15 @@ def plan_for(band: torch.Tensor, L_bkg: torch.Tensor, vd: torch.Tensor, t_r: tor
                        [t.data_ptr() for t in (band, L_bkg, vd, t_r)]), fs_L
 
 
+# bytes the plain version's autograd graph keeps per frame, as a multiple of
+# one frame of its inputs (_autograd.KernelOp): 49.6 measured at 256 x 512
+# with saved-tensor hooks on two tables (the 8 corners' weights and indices
+# per channel), and room for the backward's own
+GRAPH_BYTES = 60.0
+
+
+@_autograd.differentiable(band_score2_mov_plain, diff=(0, 1), framed=(0, 1, 4),
+                          graph_bytes=GRAPH_BYTES)
 def band_score2_mov(band: torch.Tensor, L_bkg: torch.Tensor, vd: torch.Tensor,
                     t_r: torch.Tensor, gaze_dir: torch.Tensor, V2s: torch.Tensor,
                     V2t: Optional[torch.Tensor], meta: MovMeta) -> torch.Tensor:

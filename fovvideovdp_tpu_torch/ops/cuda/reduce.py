@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda import _autograd, _lib
 from fovvideovdp_tpu_torch.ops.pyramid import _gausspyr_reduce_plain as gausspyr_reduce_plain
 from fovvideovdp_tpu_torch.ops.pyramid import ceildiv
 
@@ -67,6 +67,14 @@ def plan_for(x: torch.Tensor, y: torch.Tensor) -> LaunchPlan:
     return launch_plan(x.numel() // (H * W), H, W, x.data_ptr(), y.data_ptr())
 
 
+# bytes the plain version's autograd graph keeps per frame, as a multiple of
+# one frame of its inputs (_autograd.KernelOp): it saves nothing (its
+# operations are linear), but its forward and backward each hold about three
+# copies of the input
+GRAPH_BYTES = 4.0
+
+
+@_autograd.differentiable(gausspyr_reduce_plain, diff=(0,), framed=(0,), graph_bytes=GRAPH_BYTES)
 def gausspyr_reduce(x: torch.Tensor) -> torch.Tensor:
     """One pyramid level, (..., H, W) -> (..., ceil(H/2), ceil(W/2)).
 

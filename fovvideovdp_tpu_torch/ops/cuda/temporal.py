@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from fovvideovdp_tpu_torch.ops.cuda import _lib
+from fovvideovdp_tpu_torch.ops.cuda import _autograd, _lib
 
 _MAX_TAPS = 64  # kMaxTaps of csrc/temporal.cu
 
@@ -23,6 +23,7 @@ def temporal_pair_plain(carry_t, new_t, carry_r, new_r, taps: torch.Tensor) -> t
     return torch.stack([Rt[:, 0], Rr[:, 0], Rt[:, 1], Rr[:, 1]], dim=1)
 
 
+@_autograd.differentiable(temporal_pair_plain, diff=(0, 1, 2, 3))
 def temporal_pair(carry_t: torch.Tensor, new_t: torch.Tensor,
                   carry_r: torch.Tensor, new_r: torch.Tensor,
                   taps: torch.Tensor) -> torch.Tensor:

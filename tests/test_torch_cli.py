@@ -178,10 +178,9 @@ def test_missing_inputs_and_bad_heatmap(image_pair):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(do_temporal_channels=False), "item 3"), (dict(ignore_boundary_pixels=True), "item 3"),
     (dict(band_callback=print), "item 3"), (dict(content_mapping=object()), "item 3"),
-    (dict(use_checkpoints=True), "item 6"),
     (dict(parameter_overrides={"contrast": "log"}), "item 3"),
     (dict(parameter_overrides={"csf_sigma": -2.0}), "item 4"),
-], ids=["temporal", "boundary", "callback", "content", "checkpoints", "contrast", "csf"])
+], ids=["temporal", "boundary", "callback", "content", "contrast", "csf"])
 def test_unported_options_name_their_current_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item + r"\b"):
         port_fvvdp(device="cpu", **kwargs)

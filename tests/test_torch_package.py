@@ -98,7 +98,7 @@ def test_data_copies_match_the_jax_package(fname):
 @pytest.mark.parametrize("kwargs", [
     dict(do_temporal_channels=False),
     dict(ignore_boundary_pixels=True), dict(band_callback=print),
-    dict(content_mapping=object()), dict(use_checkpoints=True),
+    dict(content_mapping=object()),
     dict(foveated=True, content_mapping=object()),
     dict(heatmap="raw", ignore_boundary_pixels=True),
     dict(parameter_overrides={"local_adapt": "simple"}),
