@@ -79,6 +79,28 @@ Phases, each raising on failure:
      forward's launches); backward_ms (each Function at the shapes of one
      4K block: the kernel's forward beside the plain VJP's time, its chunk
      of frames and its peak);
+  8c. batches of pairs and the do_temporal_channels=False ablation:
+     batch_images (64 seeded 512x384 RGB pairs under standard_fhd through
+     predict_batch: 8 of them against per-pair predict within 1e-4 JOD;
+     warm time and pairs/s beside a loop of predict over the 64; the chunk
+     and the peak; reduce and expand_score2 launch once per level per
+     chunk, nothing else); batch_clips (3 seeded 1080p clips of 30 frames:
+     temporal_pair once per clip with an empty carry, the JODs against
+     per-pair predict within 1e-4, the same clips streamed 8 frames at a
+     time with their carry, Q_per_ch's shape, warm time); batch_foveated
+     (the 64 images with one shared gaze: its tables built once,
+     band_score2_fov and not mov_score; with a gaze per pair: mov_score,
+     not band_score2_fov, no table; each against per-pair predict);
+     ablation_video (the 4K clip with do_temporal_channels=False: the
+     transient rows exactly 0, no temporal kernel, warm time);
+     batch_vs_cpu (after every timing, which the CPU's threads would slow:
+     8 images, the first clip, 8 images in each gaze mode and a 1080p
+     8-frame ablation clip against device="cpu" within 1e-4);
+     host_resident_batch (the array source's residency limit at 0: the 8
+     images in chunks of 3, the first clip whole and streamed, the 1080p
+     ablation in one chunk and in chunks of 3, each against the CPU's JODs;
+     the 4K ablation streamed from the host in chunks of at most 32 frames
+     against its resident run, with its peak);
   9. the kernels line, then the result line.
 
 Every path has its own expectation of which kernels must launch and which
@@ -109,10 +131,16 @@ resident and host-resident; one JSON line.
     python3 chip_smoke.py --traced
 
 runs phases 1, 2 and 8b only (the differentiable path), and prints no
+result line;
+
+    python3 chip_smoke.py --batch
+
+runs phases 1, 2 and 8c only (batches and the ablation), and prints no
 result line.
 """
 import contextlib
 import functools
+import importlib
 import io
 import json
 import os
@@ -1611,6 +1639,338 @@ def traced_phases(dev, smi):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# 8c. batches of pairs (predict_batch) and the do_temporal_channels=False
+# ablation: independent frames, a chunk of them per launch
+# ---------------------------------------------------------------------------
+IMG_N, IMG_H, IMG_W = 64, 384, 512   # the image size of TID2013 and KADID-10k
+N_CHECKED = 8                         # pairs held against per-pair predict and the CPU
+CLIP_N, CLIP_FRAMES = 3, 30           # 1080p clips at 30 fps
+BATCH_TOL = 1e-4
+
+
+def image_batch(n, h, w, seed=0):
+    """n seeded RGB uint8 pairs (n, h, w, 3): a uniform reference and a
+    test with integer noise in [-12, 12)."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 256, size=(n, h, w, 3), dtype=np.uint8)
+    test = np.clip(ref.astype(np.int16) + rng.integers(-12, 12, size=ref.shape, dtype=np.int16),
+                   0, 255).astype(np.uint8)
+    return test, ref
+
+
+def clip_batch(n, h, w, frames):
+    """n gray clip pairs (n, h, w, 1, frames), each built as bench.py's clip
+    is (8 distinct frames, tiled) from its own seed."""
+    pairs = []
+    for i in range(n):
+        rng = np.random.RandomState(100 + i)
+        base = rng.randint(0, 255, size=(h, w, 1, 8), dtype=np.uint8)
+        test = np.clip(base.astype(np.int16) + rng.randint(-12, 12, size=base.shape),
+                       0, 255).astype(np.uint8)
+        reps = -(-frames // 8)
+        pairs.append([np.tile(x, (1, 1, 1, reps))[..., :frames] for x in (test, base)])
+    return (np.ascontiguousarray(np.stack([p[k] for p in pairs])) for k in (0, 1))
+
+
+def worst(got, want):
+    return float(np.max(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))))
+
+
+def batch_images_phase(dev, smi, fv, test, ref):
+    """64 512x384 RGB pairs through predict_batch against a loop of predict."""
+    n_levels = fv._get_core(IMG_W, IMG_H, with_heatmap=False).plan.height
+    must = ("gausspyr_reduce", "expand_score2")
+    (jods, _), launches = counted(lambda: fv.predict_batch(test, ref, dim_order="BHWC"))
+    expect_launches("batch_images", launches, must, not_launched(must))
+    chunk = fv._pick_chunk(IMG_H, IMG_W, IMG_N, 1, "fused",
+                           importlib.import_module("fovvideovdp_tpu_torch.fvvdp")._IMAGE_STACK_BYTES)
+    n_chunks = -(-IMG_N // chunk)
+    if launches["expand_score2"] != n_levels * n_chunks \
+            or launches["gausspyr_reduce"] != n_levels * n_chunks:
+        raise AssertionError(f"batch_images: {launches}, expected {n_levels} levels x "
+                             f"{n_chunks} chunks of {chunk}")
+    per_pair = [fv.predict(test[i], ref[i], dim_order="HWC")[0] for i in range(N_CHECKED)]
+    err_pp = worst(jods[:N_CHECKED], per_pair)
+    if jods.shape != (IMG_N,) or not np.all(np.isfinite(jods)) or not err_pp <= BATCH_TOL:
+        raise AssertionError(f"batch_images: JODs {jods[:N_CHECKED]}, per-pair predict "
+                             f"{per_pair} ({err_pp})")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, warm_s = warm_seconds(lambda: fv.predict_batch(test, ref, dim_order="BHWC"))
+    peak = torch.cuda.max_memory_allocated()
+
+    def loop():
+        for i in range(IMG_N):
+            fv.predict(test[i], ref[i], dim_order="HWC")
+    _, loop_launches = counted(loop)
+    loop_times, loop_s = warm_seconds(loop)
+    emit(dict(phase="batch_images", nvidia_smi=smi, pairs=IMG_N, shape=[IMG_H, IMG_W, 3],
+              chunk=chunk, jods_checked=jods[:N_CHECKED].tolist(), max_abs_vs_predict=err_pp,
+              warm_s_runs=times, warm_s_median=warm_s,
+              pairs_per_s=IMG_N / warm_s, loop_s_runs=loop_times, loop_s_median=loop_s,
+              loop_pairs_per_s=IMG_N / loop_s, speedup=loop_s / warm_s, peak_bytes=peak,
+              resident_bytes_before=resident, raw_batch_bytes=test.nbytes + ref.nbytes,
+              peak_bytes_per_px_frame=(peak - resident) / (chunk * IMG_H * IMG_W),
+              launches=launches, loop_launches=loop_launches))
+    return launches, jods[:N_CHECKED]
+
+
+def batch_clips_phase(dev, smi):
+    """3 1080p clips of 30 frames: each filtered whole by temporal_pair with
+    an empty carry, the chunk's responses scored in one call; then streamed
+    with their carry (block_frames=8)."""
+    test, ref = clip_batch(CLIP_N, HD_H, HD_W, CLIP_FRAMES)
+    call = dict(dim_order="BHWCF", frames_per_second=FPS)
+    fv = fvt.fvvdp(display_name="standard_fhd")
+    n_levels = fv._get_core(HD_W, HD_H).plan.height
+    must = ("gausspyr_reduce", "expand_score2", "temporal_pair")
+    (jods, stats), launches = counted(lambda: fv.predict_batch(test, ref, **call))
+    expect_launches("batch_clips", launches, must, not_launched(must))
+    fl = temporal_ops.filter_len_for_fps(FPS)
+    chunk = fv._pick_chunk(HD_H, HD_W, CLIP_N, CLIP_FRAMES + fl - 1, "fused")
+    if chunk < 1 or launches["temporal_pair"] != CLIP_N \
+            or launches["expand_score2"] != n_levels * -(-CLIP_N // chunk):
+        raise AssertionError(f"batch_clips: chunk {chunk}, {launches}: expected temporal_pair "
+                             f"once per clip with an empty carry")
+    q_pc = stats["Q_per_ch"]
+    if q_pc.shape != (n_levels, 2, CLIP_N, CLIP_FRAMES) or not np.all(np.isfinite(q_pc)):
+        raise AssertionError(f"batch_clips: Q_per_ch {q_pc.shape}")
+    per_pair = [fv.predict(test[i], ref[i], dim_order="HWCF", frames_per_second=FPS)[0]
+                for i in range(CLIP_N)]
+    streamed_fv = fvt.fvvdp(display_name="standard_fhd", block_frames=8)
+    (streamed, _), stream_launches = counted(lambda: streamed_fv.predict_batch(test, ref, **call))
+    n_blocks = -(-CLIP_FRAMES // 8)
+    err_pp, err_st = worst(jods, per_pair), worst(streamed, per_pair)
+    if not err_pp <= BATCH_TOL or not err_st <= BATCH_TOL \
+            or stream_launches["temporal_pair"] != CLIP_N * n_blocks:
+        raise AssertionError(f"batch_clips: JODs {jods}, streamed {streamed} "
+                             f"({stream_launches}), per-pair predict {per_pair}")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, warm_s = warm_seconds(lambda: fv.predict_batch(test, ref, **call))
+    peak = torch.cuda.max_memory_allocated()
+    loop_times, loop_s = warm_seconds(lambda: [
+        fv.predict(test[i], ref[i], dim_order="HWCF", frames_per_second=FPS)
+        for i in range(CLIP_N)])
+    emit(dict(phase="batch_clips", nvidia_smi=smi, clips=CLIP_N, shape=[HD_H, HD_W, 1, CLIP_FRAMES],
+              chunk=chunk, jods=jods.tolist(), per_pair_jods=per_pair, streamed_jods=streamed.tolist(),
+              max_abs_vs_predict=err_pp, max_abs_streamed_vs_predict=err_st,
+              q_per_ch_shape=list(q_pc.shape), warm_s_runs=times, warm_s_median=warm_s,
+              frames_per_s=CLIP_N * CLIP_FRAMES / warm_s, loop_s_median=loop_s,
+              loop_frames_per_s=CLIP_N * CLIP_FRAMES / loop_s, peak_bytes=peak,
+              resident_bytes_before=resident,
+              peak_bytes_per_px_frame=(peak - resident) / (chunk * CLIP_FRAMES * HD_H * HD_W),
+              launches=launches,
+              streamed_launches=stream_launches))
+    return launches, (test[:1], ref[:1], jods[:1], q_pc[:, :, :1])
+
+
+def batch_foveated_phase(dev, smi, test, ref):
+    """The 64 images foveated: one gaze shared by all pairs (its tables built
+    once, band_score2_fov), then a gaze per pair (mov_score, no table)."""
+    fv = fvt.fvvdp(display_name="standard_fhd", foveated=True)
+    core = fv._get_core(IMG_W, IMG_H, with_heatmap=False)
+    shared = np.array([150.0, 100.0], np.float32)
+    rng = np.random.default_rng(5)
+    per_pair = (rng.random((IMG_N, 2)) * [IMG_W - 1, IMG_H - 1]).astype(np.float32)
+    out, all_launches, checked = {}, {}, {}
+    for mode, gaze, must, none in (
+            ("shared_gaze", shared, ("gausspyr_reduce", "expand_contrast", "band_score2_fov"),
+             ("mov_score",)),
+            ("gaze_per_pair", per_pair, ("gausspyr_reduce", "expand_contrast", "mov_score"),
+             ("band_score2_fov",))):
+        (jods, _), launches = counted(lambda: fv.predict_batch(
+            test, ref, dim_order="BHWC", fixation_point=gaze))
+        expect_launches(f"batch_foveated {mode}", launches, must, not_launched(must))
+        tables = len(core._fov_table_cache)
+        if tables != (1 if mode == "shared_gaze" else 0):
+            raise AssertionError(f"batch_foveated {mode}: {tables} table sets resident")
+        pp = [fv.predict(test[i], ref[i], dim_order="HWC",
+                         fixation_point=gaze if gaze.ndim == 1 else gaze[i][None])[0]
+              for i in range(N_CHECKED)]
+        err = worst(jods[:N_CHECKED], pp)
+        if not err <= BATCH_TOL or not np.all(np.isfinite(jods)):
+            raise AssertionError(f"batch_foveated {mode}: {jods[:N_CHECKED]} vs per-pair "
+                                 f"predict {pp}")
+        times, warm_s = warm_seconds(lambda: fv.predict_batch(
+            test, ref, dim_order="BHWC", fixation_point=gaze))
+        out[mode] = dict(jods_checked=jods[:N_CHECKED].tolist(), max_abs_vs_predict=err,
+                         warm_s_runs=times, warm_s_median=warm_s, pairs_per_s=IMG_N / warm_s,
+                         table_sets_resident=tables, launches=launches)
+        all_launches[mode] = launches
+        checked[mode] = (gaze if gaze.ndim == 1 else gaze[:N_CHECKED], jods[:N_CHECKED])
+    emit(dict(phase="batch_foveated", nvidia_smi=smi, pairs=IMG_N, shape=[IMG_H, IMG_W, 3],
+              table_bytes=core.fov_table_bytes(), **out))
+    fv.load_state(fv.parameters, fv._luts)
+    return all_launches, checked
+
+
+def ablation_video_phase(dev, smi, test_v, ref_v):
+    """The 4K clip with do_temporal_channels=False: its frames scored as
+    images, no temporal kernel; a 1080p 8-frame clip, for the CPU check."""
+    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    fv = fvt.fvvdp(display_name="standard_4k", do_temporal_channels=False)
+    must = ("gausspyr_reduce", "expand_score2")
+    (q, stats), launches = counted(lambda: fv.predict(test_v, ref_v, **video_kw))
+    expect_launches("ablation_video", launches, must, not_launched(must))
+    q_pc = stats["Q_per_ch"]
+    if not np.isfinite(q) or not np.all(q_pc[:, 1] == 0.0) or not np.all(np.isfinite(q_pc)):
+        raise AssertionError(f"ablation 4K clip: JOD {q}, transient rows not 0")
+    chunk = fv._pick_chunk(H, W, N_FRAMES, 1, "fused",
+                           importlib.import_module("fovvideovdp_tpu_torch.fvvdp")._IMAGE_STACK_BYTES)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, warm_s = warm_seconds(lambda: fv.predict(test_v, ref_v, **video_kw))
+    peak = torch.cuda.max_memory_allocated()
+    hd_t, hd_r = synth_clip(HD_H, HD_W, HEAT_FRAMES)
+    q_hd, _ = fvt.fvvdp(display_name="standard_fhd", do_temporal_channels=False).predict(
+        hd_t, hd_r, **video_kw)
+    emit(dict(phase="ablation_video", nvidia_smi=smi, jod=q, chunk=chunk, warm_s_runs=times,
+              warm_s_median=warm_s, fps=N_FRAMES / warm_s, peak_bytes=peak,
+              resident_bytes_before=resident,
+              peak_bytes_per_px_frame=(peak - resident) / (chunk * H * W), launches=launches,
+              jod_1080p=q_hd))
+    return launches, q, (hd_t, hd_r, q_hd)
+
+
+def batch_vs_cpu_phase(smi, images, clip, foveated, hd_clip):
+    """The card's results of phase 8c against device="cpu" on the same
+    inputs: 8 images, the first 1080p clip (JOD and Q_per_ch), 8 images in
+    each foveated gaze mode, the 1080p ablation clip.  Run after every
+    timing of the phase, which the CPU's threads would slow.  Returns the
+    CPU's JODs of the images, the clip and the ablation clip."""
+    img_t, img_r, img_card = images
+    clip_t, clip_r, clip_card, clip_q = clip
+    hd_t, hd_r, hd_card = hd_clip
+    fhd = functools.partial(fvt.fvvdp, display_name="standard_fhd", device="cpu")
+    t0 = time.perf_counter()
+    img_cpu, _ = fhd().predict_batch(img_t, img_r, dim_order="BHWC")
+    clip_cpu, clip_stats = fhd().predict_batch(clip_t, clip_r, dim_order="BHWCF",
+                                               frames_per_second=FPS)
+    fov = {mode: fhd(foveated=True).predict_batch(img_t, img_r, dim_order="BHWC",
+                                                  fixation_point=gaze)[0]
+           for mode, (gaze, _) in foveated.items()}
+    hd_cpu, _ = fhd(do_temporal_channels=False).predict(hd_t, hd_r, dim_order="HWCF",
+                                                       frames_per_second=FPS)
+    errs = dict(batch_images=worst(img_card, img_cpu), batch_clips=worst(clip_card, clip_cpu),
+                **{f"batch_foveated_{mode}": worst(card, fov[mode])
+                   for mode, (_, card) in foveated.items()},
+                ablation_1080p=abs(hd_card - hd_cpu))
+    emit(dict(phase="batch_vs_cpu", nvidia_smi=smi, max_abs_jod=errs,
+              clip_q_per_ch_max_abs=worst(clip_q, clip_stats["Q_per_ch"]),
+              cpu_s=time.perf_counter() - t0))
+    bad = {case: err for case, err in errs.items() if not err <= BATCH_TOL}
+    if bad:
+        raise AssertionError(f"batch_vs_cpu: card against CPU over {BATCH_TOL}: {bad}")
+    return img_cpu, float(clip_cpu[0]), hd_cpu
+
+
+def host_resident_batch_phase(dev, smi, images, clip, hd_clip, test_v, ref_v, q_4k):
+    """The host-resident paths of phase 8c, with the array source's
+    residency limit at 0: a batch stays on the host and goes up a chunk at a
+    time (_upload_bcfhw), the ablation's frames a chunk at a time through
+    the pinned staging buffers with the next chunk prefetched.  Each against
+    the CPU on the inputs of the cases above, the 4K ablation against its
+    resident run.  Returns each case's launches."""
+    img_t, img_r, img_cpu = images
+    clip_t, clip_r, clip_cpu = clip
+    hd_t, hd_r, hd_cpu = hd_clip
+    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    clip_kw = dict(dim_order="BHWCF", frames_per_second=FPS)
+    fhd = functools.partial(fvt.fvvdp, display_name="standard_fhd")
+    vsrc = importlib.import_module("fovvideovdp_tpu_torch.video_source")
+    runs = (
+        # (case, call, CPU JOD(s), kernels that must launch, kernels that must not)
+        ("images_chunks_of_3", lambda: fhd(block_frames=3).predict_batch(
+            img_t, img_r, dim_order="BHWC")[0], img_cpu,
+         ("gausspyr_reduce", "expand_score2"), ("temporal_pair",)),
+        ("clip_whole", lambda: fhd().predict_batch(clip_t, clip_r, **clip_kw)[0], [clip_cpu],
+         ("gausspyr_reduce", "expand_score2", "temporal_pair"), ("expand_contrast",)),
+        ("clip_streamed", lambda: fhd(block_frames=8).predict_batch(
+            clip_t, clip_r, **clip_kw)[0], [clip_cpu],
+         ("gausspyr_reduce", "expand_score2", "temporal_pair"), ("expand_contrast",)),
+        ("ablation_1080p", lambda: [fhd(do_temporal_channels=False).predict(
+            hd_t, hd_r, **video_kw)[0]], [hd_cpu],
+         ("gausspyr_reduce", "expand_score2"), ("temporal_pair",)),
+        ("ablation_1080p_chunks_of_3", lambda: [fhd(do_temporal_channels=False, block_frames=3)
+                                                .predict(hd_t, hd_r, **video_kw)[0]], [hd_cpu],
+         ("gausspyr_reduce", "expand_score2"), ("temporal_pair",)),
+    )
+    out, all_launches = {}, {}
+    fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = 0
+    try:
+        pb = vsrc.PairBatch(img_t, img_r, "BHWC", 0, None, None, dev)
+        src = fvt.fvvdp_video_source_array(hd_t, hd_r, FPS, dim_order="HWCF", device=dev)
+        if pb._t.device.type != "cpu" or src.resident:
+            raise AssertionError("host_resident_batch: the residency limit of 0 was not applied")
+        del pb, src
+        for case, call, want, must, none in runs:
+            got, launches = counted(call)
+            expect_launches(f"host_resident_batch {case}", launches, must, none)
+            err = worst(got, want)
+            if not err <= BATCH_TOL or not np.all(np.isfinite(got)):
+                raise AssertionError(f"host_resident_batch {case}: card {got} vs CPU {want}")
+            out[case] = dict(jods=np.asarray(got, np.float64).tolist(), max_abs_vs_cpu=err,
+                             launches=launches)
+            all_launches[case] = launches
+        # the 4K ablation streamed from the host: chunks of at most a block
+        fv4k = fvt.fvvdp(display_name="standard_4k", do_temporal_channels=False)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (q_host, stats), launches = counted(lambda: fv4k.predict(test_v, ref_v, **video_kw))
+        peak = torch.cuda.max_memory_allocated()
+        q_pc = stats["Q_per_ch"]
+        expect_launches("host_resident_batch ablation_4k", launches,
+                        ("gausspyr_reduce", "expand_score2"), ("temporal_pair",))
+        n_levels = fv4k._get_core(W, H).plan.height
+        chunks = launches["expand_score2"] // n_levels
+        if not abs(q_host - q_4k) <= BATCH_TOL or not np.all(q_pc[:, 1] == 0.0) \
+                or chunks < -(-N_FRAMES // 32):
+            raise AssertionError(f"host_resident_batch ablation_4k: JOD {q_host} vs resident "
+                                 f"{q_4k}, {chunks} chunks, {launches}")
+        out["ablation_4k"] = dict(jod=q_host, resident_jod=q_4k, abs_vs_resident=abs(q_host - q_4k),
+                                  chunks=chunks, peak_bytes=peak,
+                                  resident_bytes_before=resident, launches=launches)
+        all_launches["ablation_4k"] = launches
+    finally:
+        fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = None
+    emit(dict(phase="host_resident_batch", nvidia_smi=smi, **out))
+    return all_launches
+
+
+def batch_phases(dev, smi, test_v, ref_v):
+    """Phase 8c, each raising on failure: the timed cases on the card, their
+    check against the CPU, then the host-resident cases against the CPU's
+    JODs.  Returns each case's launches."""
+    test, ref = image_batch(IMG_N, IMG_H, IMG_W)
+    launches = {}
+    launches["batch_images"], img_card = batch_images_phase(
+        dev, smi, fvt.fvvdp(display_name="standard_fhd"), test, ref)
+    torch.cuda.empty_cache()
+    launches["batch_clips"], clip = batch_clips_phase(dev, smi)
+    torch.cuda.empty_cache()
+    fov_launches, foveated = batch_foveated_phase(dev, smi, test, ref)
+    for mode, counts in fov_launches.items():
+        launches[f"batch_foveated_{mode}"] = counts
+    torch.cuda.empty_cache()
+    launches["ablation_video"], q_4k, hd_clip = ablation_video_phase(dev, smi, test_v, ref_v)
+    torch.cuda.empty_cache()
+    images = (test[:N_CHECKED], ref[:N_CHECKED])
+    img_cpu, clip_cpu, hd_cpu = batch_vs_cpu_phase(smi, images + (img_card,), clip, foveated,
+                                                   hd_clip)
+    for case, counts in host_resident_batch_phase(
+            dev, smi, images + (img_cpu,), clip[:2] + (clip_cpu,), hd_clip[:2] + (hd_cpu,),
+            test_v, ref_v, q_4k).items():
+        launches[f"host_resident_{case}"] = counts
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -1622,6 +1982,7 @@ def main():
     if "--time-upload" in sys.argv:
         return time_upload(dev)
     traced_only = "--traced" in sys.argv
+    batch_only = "--batch" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -1646,6 +2007,9 @@ def main():
               nvcc_seconds=_lib.build_seconds))
     if traced_only:
         traced_phases(dev, smi)
+        return 0
+    if batch_only:
+        batch_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
         return 0
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
@@ -2077,12 +2441,18 @@ def main():
     torch.cuda.empty_cache()
     backward = traced_phases(dev, smi)
 
+    # 8c. batches of pairs and the ablation
+    batch = batch_phases(dev, smi, test_v, ref_v)
+
     # 9. kernels line, result line
     print(smi, flush=True)
     summary = kernel_summary(cases["rows"], path_launches)
     for row in summary:
         # the Function's backward (the plain VJP) at the same block's shapes
         row["backward_plain_ms"] = backward[row["name"]]["backward_ms"]
+        # launches in each case of phase 8c (temporal_pair in batch_clips:
+        # once per clip, with an empty carry)
+        row["batch_launches"] = {case: counts[row["name"]] for case, counts in batch.items()}
     emit(dict(kernels=summary))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))

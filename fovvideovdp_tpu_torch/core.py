@@ -27,7 +27,7 @@ has C = 2.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -454,6 +454,55 @@ class MetricCore:
         ``gaze``: (1, 2), in place of ``fov_tables``."""
         return self.score_frames(torch.stack([T, Rf], dim=0)[None], temp_ch=1,
                                  fov_tables=fov_tables, gaze=gaze)
+
+    def score_frame_pairs(self, frames: Callable, n: int, chunk: int, fov_tables=None,
+                          gaze=None, keep: Optional[Callable] = None) -> torch.Tensor:
+        """Q_per_ch (n_bands, 2, n) of n independent frame pairs, each scored
+        as an image (zero transient channels), ``chunk`` pairs at a time:
+        the frames of a clip without temporal channels, or the pairs of an
+        image batch.  ``frames(start, count)`` gives the (count, H, W) test
+        and reference luminance of pairs start..start+count-1 on the core's
+        device; ``gaze``: (n, 2) rows, in place of ``fov_tables``;
+        ``keep(heat)`` takes each chunk's heatmap (None without one)."""
+        Q = torch.empty((self.plan.height, 2, n), dtype=torch.float32, device=self.device)
+        for pos in range(0, n, chunk):
+            b = min(chunk, n - pos)
+            Q[:, :, pos:pos + b], heat = self.score_frames(
+                torch.stack(frames(pos, b), dim=1), 1, fov_tables,
+                None if gaze is None else gaze[pos:pos + b])
+            if keep is not None:
+                keep(heat)
+        return Q
+
+    def score_video(self, block: Callable, indexed: Callable, n_frames: int,
+                    taps: torch.Tensor, pad_idx: np.ndarray, B: int, fov_tables=None,
+                    gaze=None, keep: Optional[Callable] = None) -> torch.Tensor:
+        """Q_per_ch (n_bands, 2, n_frames) of a clip streamed B frames at a
+        time, each block filtered with the fl-1 frames before it
+        (:meth:`video_step`).  ``block(start, count)`` and
+        ``indexed(indices)`` give (count, H, W) test and reference luminance
+        on the core's device; ``pad_idx``: the padded clip's frame indices
+        (``ops.temporal.padding_indices``); ``gaze``: (n_frames, 2) rows, in
+        place of ``fov_tables``; ``keep(heat)`` takes each block's heatmap."""
+        fl = taps.shape[1]
+        stream_idx = pad_idx[fl - 1:]  # frame feeding each output frame
+        Q = torch.empty((self.plan.height, 2, n_frames), dtype=torch.float32,
+                        device=self.device)
+        carry_t, carry_r = indexed(pad_idx[:fl - 1])
+        for pos in range(0, n_frames, B):
+            b = min(B, n_frames - pos)
+            blk = stream_idx[pos:pos + b]
+            if np.array_equal(blk, np.arange(pos, pos + b)):
+                new_t, new_r = block(pos, b)
+            else:  # circular/pingpong padding reorders the first frames
+                new_t, new_r = indexed(blk)
+            Q_blk, heat, carry_t, carry_r = self.video_step(
+                carry_t, carry_r, new_t, new_r, taps, fov_tables,
+                None if gaze is None else gaze[pos:pos + b])
+            Q[:, :, pos:pos + b] = Q_blk
+            if keep is not None:
+                keep(heat)
+        return Q
 
     def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor,
                    fov_tables=None, gaze=None):

@@ -2,10 +2,11 @@
 
 Counterpart of ``fovvideovdp_tpu/fvvdp.py:68-213`` (constructor, config,
 display, cores), ``predict``, ``predict_video_source`` (image branch, the
-streaming loop, foveation with a fixed or a per-frame gaze, heatmaps on the
-host or the device), the differentiable ``predict_traced`` and ``loss``
-(``:1165-1242``), ``do_pooling_and_jods`` and ``write_features_to_json``
-(``:1283-1295``).  The default device is the
+streaming loop, the ``do_temporal_channels=False`` ablation, foveation with
+a fixed or a per-frame gaze, heatmaps on the host or the device),
+``predict_batch`` on one card (``:953-1163``), the differentiable
+``predict_traced`` and ``loss`` (``:1165-1242``), ``do_pooling_and_jods`` and
+``write_features_to_json`` (``:1283-1295``).  The default device is the
 CUDA card; ``device="cpu"`` runs every kernel's plain version instead.
 
 Frames are scored in blocks: each block's temporal window is the fl-1
@@ -35,9 +36,11 @@ from fovvideovdp_tpu_torch.display_model import (fvvdp_display_geometry,
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
-from fovvideovdp_tpu_torch.video_source import (channels_to_luminance,
+from fovvideovdp_tpu_torch.parallel.sharding import (make_batch_scorer,
+                                                     make_batch_video_scorer)
+from fovvideovdp_tpu_torch.video_source import (PairBatch, channels_to_luminance,
                                                 fvvdp_video_source_array, reshuffle_dims,
-                                                resolve_device)
+                                                resolve_device, rgb_to_y)
 
 # Device bytes a block of B frames at H x W keeps live, per pixel-frame, by
 # the route the core takes (core.MetricCore.route).  "fused": the
@@ -60,6 +63,16 @@ _BLOCK_MEM_SHARE = 0.5
 # each block re-reads are already under a fifth of the temporal kernel's
 # input at 30 fps (7 of 39 frames), and the per-block launches are ~25.
 _MAX_BLOCK_FRAMES = 32
+# Independent frames (the images of a batch, the frames of the ablation,
+# whole clips of a batch) carry nothing between chunks, so a chunk is capped
+# by memory and by the launch plans alone: expand_contrast puts the frames
+# on grid.z, which takes at most 65535.
+_MAX_CHUNK_FRAMES = 65535
+# Bytes per pixel-frame a chunk of images holds on top of its route's: the
+# (n, 2, H, W) stack of the pair stays live beside the copy that adds the
+# zero transient planes (core.score_frames; foveated, each level's contrast
+# beside its zero-padded copy).
+_IMAGE_STACK_BYTES = 8
 
 HEATMAP_TYPES = ("raw", "threshold", "supra-threshold", "monochromatic")
 
@@ -97,8 +110,6 @@ class fvvdp:
             # sense for the display-referred colour-mapped outputs
             raise ValueError("heatmap_dtype='uint8' requires a colormapped "
                              "heatmap type, not 'raw'")
-        if not do_temporal_channels:
-            raise _unsupported("do_temporal_channels=False", "queue 1 item 3")
         if ignore_boundary_pixels:
             raise _unsupported("ignore_boundary_pixels", "queue 1 item 3")
         if band_callback is not None:
@@ -120,6 +131,11 @@ class fvvdp:
         self.color_space = color_space
         self.temp_padding = temp_padding
         self.block_frames = block_frames
+        # False: every frame of a video is scored as an independent image
+        # (the MATLAB core's ablation); predict_batch does not read it, as
+        # in the JAX package
+        self.do_temporal_channels = bool(do_temporal_channels)
+        self.content_mapping = content_mapping      # None: refused above
         # predict_traced recomputes the spatial scoring in the backward
         # instead of keeping its graph (torch.utils.checkpoint)
         self.use_checkpoints = bool(use_checkpoints)
@@ -193,8 +209,12 @@ class fvvdp:
             color_space_name=self.color_space, device=self.device)
         return self.predict_video_source(test_vs, fixation_point=fixation_point)
 
-    def _get_core(self, width: int, height: int) -> MetricCore:
-        key = (width, height)
+    def _get_core(self, width: int, height: int, with_heatmap: bool = True) -> MetricCore:
+        """The core of this resolution; ``with_heatmap=False``: the core of
+        the same metric without a heatmap, which scores on the kernels'
+        routes (predict_batch returns no heatmap)."""
+        heatmap = self.heatmap if with_heatmap else None
+        key = (width, height, heatmap)
         if key not in self._cores:
             plan = PyramidPlan(width, height, self.pix_per_deg)
             try:
@@ -204,8 +224,24 @@ class fvvdp:
             self._cores[key] = MetricCore(
                 plan, self.parameters, self._luts, self.device, peak_luminance=peak,
                 geometry=self.display_geometry, foveated=self.foveated,
-                heatmap=self.heatmap, heatmap_dtype=self.heatmap_dtype)
+                heatmap=heatmap, heatmap_dtype=self.heatmap_dtype)
         return self._cores[key]
+
+    def _free_device_bytes(self):
+        """The card's free memory, with what the caching allocator holds but
+        no tensor uses; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return free + torch.cuda.memory_reserved(self.device) \
+            - torch.cuda.memory_allocated(self.device)
+
+    def _frames_by_memory(self, height: int, width: int, bytes_per_px_frame: int):
+        """Frames that half of the free device memory holds; None on the CPU."""
+        free = self._free_device_bytes()
+        if free is None:
+            return None
+        return int(_BLOCK_MEM_SHARE * free // (bytes_per_px_frame * height * width))
 
     def _pick_block_size(self, height: int, width: int, n_frames: int,
                          route: str = "fused") -> int:
@@ -214,15 +250,35 @@ class fvvdp:
         tables are built, so that the free memory excludes them."""
         if self.block_frames is not None:
             return max(1, min(int(self.block_frames), n_frames))
-        if self.device.type != "cuda":
+        by_mem = self._frames_by_memory(height, width, _BLOCK_BYTES_PER_PX_FRAME[route])
+        if by_mem is None:
             return min(_MAX_BLOCK_FRAMES, n_frames)
-        free, _ = torch.cuda.mem_get_info(self.device)
-        # memory the caching allocator holds but no tensor uses is free too
-        free += torch.cuda.memory_reserved(self.device) \
-            - torch.cuda.memory_allocated(self.device)
-        by_mem = int(_BLOCK_MEM_SHARE * free
-                     // (_BLOCK_BYTES_PER_PX_FRAME[route] * height * width))
         return max(1, min(by_mem, _MAX_BLOCK_FRAMES, n_frames))
+
+    def _pick_chunk(self, height: int, width: int, n_items: int, item_frames: int,
+                    route: str, extra_bytes: int = 0) -> int:
+        """Independent items per chunk: images, or whole clips whose padded
+        windows hold ``item_frames`` frames.  As many as ``block_frames``
+        frames hold, or half of the free device memory at the route's bytes
+        per pixel-frame plus ``extra_bytes``, up to ``_MAX_CHUNK_FRAMES``
+        frames.  0 when one clip's window does not fit: each clip then
+        streams.  Raises when not even one frame fits.  Call it after the
+        fixed-gaze tables are built."""
+        if self.block_frames is not None:
+            frames = max(1, int(self.block_frames))
+        else:
+            per_px = _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes
+            frames = self._frames_by_memory(height, width, per_px)
+            if frames is None:
+                frames = _MAX_CHUNK_FRAMES
+            elif frames < 1:
+                free = self._free_device_bytes()
+                raise RuntimeError(
+                    f"one {width}x{height} frame pair needs "
+                    f"{per_px * height * width / 2**30:.2f} GiB on the {route!r} route "
+                    f"({per_px} B per pixel-frame), over half of the card's free memory "
+                    f"({free / 2**30:.2f} GiB)")
+        return min(n_items, min(frames, _MAX_CHUNK_FRAMES) // item_frames)
 
     def _device_heatmap_budget(self):
         """Bytes a whole video's heatmap may hold on the device: half of the
@@ -300,38 +356,35 @@ class fvvdp:
             # a per-frame source may give its frames on another device
             return tuple(x.to(self.device, torch.float32) for x in pair)
 
+        def block(start, count):
+            return on_device(vid_source.get_luminance_block(start, count))
+
         if N_frames == 1:
-            t, r = on_device(vid_source.get_luminance_block(0, 1))
+            t, r = block(0, 1)
             Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
             keep(heat)
+        elif not self.do_temporal_channels:
+            # the ablation (fovvideovdp_tpu/fvvdp.py:389-430): every frame
+            # scored as an independent image, so no temporal kernel runs and
+            # the transient rows are exactly 0
+            staged = vid_source.host_block_bytes(1)
+            chunk = self._pick_chunk(height, width, N_frames, 1, route,
+                                     _IMAGE_STACK_BYTES + -(-staged // (height * width)))
+            if staged:
+                # frames streamed from the host: the prefetched next chunk is
+                # on the card (counted above) and each chunk passes through a
+                # pinned buffer, so chunks stay a streamed block's size
+                chunk = min(chunk, _MAX_BLOCK_FRAMES)
+            Q_per_ch = core.score_frame_pairs(block, N_frames, chunk, fov_tables, gaze, keep)
         else:
             fps = vid_source.get_frames_per_second()
             fl = temporal_ops.filter_len_for_fps(fps)
-            filt = temporal_ops.temporal_filters(
-                fps, fl, self.sustained_sigma, self.sustained_beta)
-            taps = torch.as_tensor(filt, device=self.device)
-            pad_idx = temporal_ops.padding_indices(N_frames, fl, self.temp_padding)
-            stream_idx = pad_idx[fl - 1:]  # frame feeding each output frame
-
-            B = self._pick_block_size(height, width, N_frames, route)
-            Q_per_ch = torch.empty((plan.height, 2, N_frames), dtype=torch.float32,
-                                   device=self.device)
-            carry_t, carry_r = on_device(
-                vid_source.get_indexed_luminance_block(pad_idx[:fl - 1]))
-            pos = 0
-            while pos < N_frames:
-                b = min(B, N_frames - pos)
-                blk = stream_idx[pos:pos + b]
-                if np.array_equal(blk, np.arange(pos, pos + b)):
-                    new_t, new_r = on_device(vid_source.get_luminance_block(pos, b))
-                else:  # circular/pingpong padding reorders the first frames
-                    new_t, new_r = on_device(vid_source.get_indexed_luminance_block(blk))
-                Q_blk, heat, carry_t, carry_r = core.video_step(
-                    carry_t, carry_r, new_t, new_r, taps, fov_tables,
-                    None if gaze is None else gaze[pos:pos + b])
-                Q_per_ch[:, :, pos:pos + b] = Q_blk
-                keep(heat)
-                pos += b
+            taps = torch.as_tensor(temporal_ops.temporal_filters(
+                fps, fl, self.sustained_sigma, self.sustained_beta), device=self.device)
+            Q_per_ch = core.score_video(
+                block, lambda idx: on_device(vid_source.get_indexed_luminance_block(idx)),
+                N_frames, taps, temporal_ops.padding_indices(N_frames, fl, self.temp_padding),
+                self._pick_block_size(height, width, N_frames, route), fov_tables, gaze, keep)
 
         Q_jod = self.do_pooling_and_jods(Q_per_ch)
         stats = {
@@ -351,6 +404,85 @@ class fvvdp:
                 stats["heatmap"] = np.concatenate(heat_blocks, axis=0).transpose(
                     1, 0, 2, 3)[None]
         return float(Q_jod), stats
+
+    # ------------------------------------------------------------------
+    # batches of independent pairs
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def predict_batch(self, test_conts, reference_conts, dim_order="BCFHW",
+                      frames_per_second=0, mesh=None, fixation_point=None):
+        """Score a batch of N test/reference pairs on the card, a chunk of
+        pairs at a time (``fovvideovdp_tpu/fvvdp.py:953-1163``, which
+        replaces the reference's job farming, ``benchmark_cluster.sh``).
+
+        Inputs follow ``predict``'s conventions with a batch axis: any
+        ``dim_order`` that holds "B".  A batch on the host goes up whole
+        when it fits the array source's residency limit, else a chunk at a
+        time.  Images are scored as independent frames; clips are filtered
+        whole (padded by ``temp_padding``) and scored a chunk of clips at a
+        time, or streamed one by one when a clip does not fit the card.
+        Chunks are sized from the card's free memory.  Foveated gaze: one
+        (x, y) ``fixation_point`` shared by all pairs (the default: the
+        centre; its per-pixel tables are built once), (N, 2) per pair, or
+        (N, F, 2) per frame (both on the moving-gaze route).  As in the JAX
+        package, ``do_temporal_channels`` is not read, and no heatmap is
+        made.  ``mesh`` (several cards) is not ported yet.
+
+        Returns (Q_JOD (N,) np.ndarray, stats): "width", "height",
+        "N_frames", "N_pairs", "frames_per_second", and for clips
+        "Q_per_ch" (n_bands, 2, N, F)."""
+        if mesh is not None:
+            raise _unsupported("mesh", "queue 1 item 7")
+        gaze_mode = None  # None | "tables" (one shared point) | "per_pair"
+        if self.foveated:
+            if self.content_mapping is not None:
+                raise RuntimeError("predict_batch does not support foveated content mapping")
+            fp = np.asarray([0, 0] if fixation_point is None else fixation_point,
+                            dtype=np.float32)
+            if fp.ndim == 1 and fp.shape[0] == 2:
+                gaze_mode = "tables"
+            elif fp.ndim in (2, 3) and fp.shape[-1] == 2:
+                gaze_mode = "per_pair"
+            else:
+                raise RuntimeError("fixation_point must be (x, y) shared by all pairs, "
+                                   "(N, 2) per pair, or (N, F, 2) per frame")
+        if "B" not in dim_order.upper():
+            raise RuntimeError("predict_batch needs a batch axis; include 'B' in dim_order")
+        pairs = PairBatch(test_conts, reference_conts, dim_order, frames_per_second,
+                          self.display_photometry, rgb_to_y(self.color_space), self.device)
+        N, _, F, H, W = pairs.shape
+
+        core = self._get_core(W, H, with_heatmap=False)
+        route = core.route
+        fov_tables = gaze = None
+        if gaze_mode == "tables":
+            if fixation_point is None:
+                fp = np.asarray([W // 2, H // 2], dtype=np.float32)
+            fov_tables = core.fov_tables((float(fp[0]), float(fp[1])))
+        elif gaze_mode == "per_pair":
+            if fp.shape[0] != N:
+                raise RuntimeError(f"fixation_point has {fp.shape[0]} rows for {N} pairs")
+            # a row per output frame of each pair
+            gaze_b = np.broadcast_to(fp[:, None, :] if fp.ndim == 2 else fp, (N, F, 2))
+            core.drop_fov_tables()
+            gaze = torch.as_tensor(np.array(gaze_b, dtype=np.float32), device=self.device)
+            route = "moving" if core.moving_route == "banded" else "composed"
+        stats = {"width": W, "height": H, "N_frames": F, "N_pairs": N,
+                 "frames_per_second": frames_per_second}
+        if F == 1:
+            chunk = self._pick_chunk(H, W, N, 1, route, _IMAGE_STACK_BYTES)
+            jods = make_batch_scorer(core, pairs, chunk, self.parameters, fov_tables,
+                                     None if gaze is None else gaze[:, 0])
+        else:
+            fl = temporal_ops.filter_len_for_fps(frames_per_second)
+            filt = temporal_ops.temporal_filters(frames_per_second, fl,
+                                                 self.sustained_sigma, self.sustained_beta)
+            chunk = self._pick_chunk(H, W, N, F + fl - 1, route)
+            block = 0 if chunk else self._pick_block_size(H, W, F, route)
+            jods, Q_per_ch = make_batch_video_scorer(core, pairs, filt, self.parameters, chunk,
+                                                     block, self.temp_padding, fov_tables, gaze)
+            stats["Q_per_ch"] = Q_per_ch.cpu().numpy()
+        return jods.cpu().numpy(), stats
 
     # ------------------------------------------------------------------
     # differentiable path (the metric as a training loss)
@@ -393,8 +525,7 @@ class fvvdp:
         if F > 1 and frames_per_second <= 0:
             raise RuntimeError(
                 "When passing video sequences, you must set 'frames_per_second' parameter")
-        colorspaces = utils.json2dict(utils.config_files.find("color_spaces.json"))
-        rgb2y = [float(c) for c in colorspaces[self.color_space]["RGB2Y"]]
+        rgb2y = rgb_to_y(self.color_space)
 
         def to_lum(x):                                       # (F, H, W)
             if C == 3:

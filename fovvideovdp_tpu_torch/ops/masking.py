@@ -2,7 +2,8 @@
 
 Counterpart of ``fovvideovdp_tpu/ops/masking.py:13-70``: the calibrated
 'min_mutual_masking_perc_norm2' model (without the ``pu_dilate`` blur) and
-the band -> channel -> frame pooling to JOD.
+the band -> channel -> frame pooling to JOD, of one clip or of each pair
+of a batch.
 """
 from __future__ import annotations
 
@@ -31,14 +32,16 @@ def pool_to_jod(Q_per_ch: torch.Tensor, w_transient: float, beta_sch: float,
                 log_jod_exp: float) -> torch.Tensor:
     """Band -> channel -> frame pooling and the JOD regression.
 
-    Q_per_ch: (n_bands, 2, n_frames) float32.  Returns a 0-d float32 tensor
-    on Q_per_ch's device."""
+    Q_per_ch: (n_bands, 2, n_frames) float32, or (n_bands, 2, N, n_frames)
+    for N pairs, each pooled on its own (the JAX package ``vmap``s this
+    function over pairs, ``fovvideovdp_tpu/parallel/sharding.py:359-364``).
+    Returns a 0-d float32 tensor, or (N,), on Q_per_ch's device."""
     w = torch.tensor([1.0, w_transient], dtype=Q_per_ch.dtype,
-                     device=Q_per_ch.device)[None, :, None]
+                     device=Q_per_ch.device).reshape((1, 2) + (1,) * (Q_per_ch.dim() - 2))
     Q_sc = lp_norm(Q_per_ch * w, beta_sch, dim=0, normalize=False)
     Q_tc = lp_norm(Q_sc, beta_tch, dim=1, normalize=False)
-    Q = lp_norm(Q_tc, beta_t, dim=2, normalize=True)
-    Q = torch.squeeze(Q)
+    Q = lp_norm(Q_tc, beta_t, dim=-1, normalize=True)
+    Q = Q.reshape(Q_per_ch.shape[2:-1])
 
     sign = 1.0 if jod_a >= 0 else -1.0
     beta_jod = 10.0 ** log_jod_exp

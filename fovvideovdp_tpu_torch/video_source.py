@@ -4,7 +4,9 @@ blocks on the device.
 Counterpart of ``fovvideovdp_tpu/video_source.py:29-72,74-83,106-230,
 266-518``.  The base class takes the reference's per-frame API
 (``get_test_frame``/``get_reference_frame``) and builds blocks from it; the
-array source overrides the block methods.  It keeps the raw (C, F, H, W)
+array source overrides the block methods.  :class:`PairBatch` holds the N
+pairs of a batch (``fvvdp.predict_batch``) and converts a chunk of pairs at
+a time.  It keeps the raw (C, F, H, W)
 pair on the device while it fits a share of the card's free memory, uploaded
 in chunks through pinned staging buffers; above that the pair stays on the
 host and each block's raw frames go up when the block is needed, on a side
@@ -16,7 +18,7 @@ converts one frame at a time through the per-frame methods.
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -83,8 +85,16 @@ def channels_to_luminance(channel: Callable[[int], torch.Tensor], dm, rgb2y) -> 
     return L + dm.forward(channel(2)) * rgb2y[2]
 
 
+def rgb_to_y(color_space_name: str) -> Tuple[float, float, float]:
+    """The colour space's RGB -> Y weights (``color_spaces.json``)."""
+    colorspaces = utils.json2dict(utils.config_files.find("color_spaces.json"))
+    if color_space_name not in colorspaces:
+        raise RuntimeError(f'Unknown color space: "{color_space_name}"')
+    return tuple(float(c) for c in colorspaces[color_space_name]["RGB2Y"])
+
+
 def _luminance_cfirst(blk: torch.Tensor, dm, rgb2y) -> torch.Tensor:
-    """(C, n, H, W) raw frames -> (n, H, W) absolute luminance."""
+    """(C, n, ...) raw frames -> (n, ...) absolute luminance."""
     if blk.shape[0] == 3:
         return channels_to_luminance(lambda c: _decode_raw(blk[c]), dm, rgb2y)
     return dm.forward(_decode_raw(blk[0]))
@@ -131,6 +141,9 @@ class fvvdp_video_source(ABC):
     block methods concatenate them unless a subclass overrides them with a
     batched conversion."""
 
+    # the staging and prefetch of a source whose raw frames stay off the card
+    _blocks: Optional["_HostBlocks"] = None
+
     @abstractmethod
     def get_video_size(self) -> Tuple[int, int, int]:
         """(height, width, n_frames)"""
@@ -151,6 +164,13 @@ class fvvdp_video_source(ABC):
         """Whether frames can be fetched at arbitrary positions; circular
         and pingpong padding need it.  A streaming source returns False."""
         return True
+
+    def host_block_bytes(self, count: int) -> int:
+        """Bytes of ``count`` frames' raw pair that the source stages in each
+        of its two pinned buffers and keeps on the device for its prefetched
+        next block; 0 when its frames are on the device or come one at a
+        time through the per-frame methods."""
+        return 0 if self._blocks is None else self._blocks.nbytes(count)
 
     def get_luminance_block(self, start: int, count: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,11 +193,7 @@ class fvvdp_video_source_dm(fvvdp_video_source):
     """Source that applies a photometric display model + RGB->Y conversion."""
 
     def __init__(self, display_photometry="sdr_4k_30", color_space_name="sRGB"):
-        colorspaces = utils.json2dict(utils.config_files.find("color_spaces.json"))
-        if color_space_name not in colorspaces:
-            raise RuntimeError(f'Unknown color space: "{color_space_name}"')
-        self.color_to_luminance = tuple(
-            float(c) for c in colorspaces[color_space_name]["RGB2Y"])
+        self.color_to_luminance = rgb_to_y(color_space_name)
 
         if isinstance(display_photometry, str):
             self.dm_photometry = fvvdp_display_photometry.load(display_photometry)
@@ -242,8 +258,8 @@ def _staged_copy(dst: torch.Tensor, src: torch.Tensor,
     dst.record_stream(side)
 
 
-def _upload_cfhw(raw, dim_order: str, device: torch.device) -> torch.Tensor:
-    """Raw array or tensor in any dim order -> contiguous (C, F, H, W) on
+def _upload_bcfhw(raw, dim_order: str, device: torch.device) -> torch.Tensor:
+    """Raw array or tensor in any dim order -> contiguous (B, C, F, H, W) on
     the device.  The bytes go up as stored (:func:`_staged_copy` from the
     host) and the dim shuffle runs on the device."""
     t = _as_stored(raw)
@@ -253,7 +269,12 @@ def _upload_cfhw(raw, dim_order: str, device: torch.device) -> torch.Tensor:
         t = up
     else:
         t = t.to(device)
-    return reshuffle_dims(t, dim_order, "BCFHW")[0].contiguous()
+    return reshuffle_dims(t, dim_order, "BCFHW").contiguous()
+
+
+def _upload_cfhw(raw, dim_order: str, device: torch.device) -> torch.Tensor:
+    """The same for one pair: contiguous (C, F, H, W) on the device."""
+    return _upload_bcfhw(raw, dim_order, device)[0]
 
 
 class _HostBlocks:
@@ -268,7 +289,7 @@ class _HostBlocks:
     def __init__(self, fill: Callable[[np.ndarray, torch.Tensor], None],
                  nbytes: Callable[[int], int], device: torch.device):
         self._fill = fill
-        self._nbytes = nbytes
+        self.nbytes = nbytes
         self.device = device
         self._side = torch.cuda.Stream(device)
         self._staging = [None, None]     # pinned flat uint8 buffers, grown on demand
@@ -279,7 +300,7 @@ class _HostBlocks:
     def _stage(self, idx: np.ndarray):
         """Frames at idx -> (flat uint8 device block, the event of its
         transfer on the side stream)."""
-        n = self._nbytes(len(idx))
+        n = self.nbytes(len(idx))
         s = self._slot
         self._slot ^= 1
         if self._done[s] is not None:
@@ -378,11 +399,16 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
                 self._blocks = _HostBlocks(self._fill, self._pair_bytes, self.device)
 
     def _preload_limit(self) -> float:
-        if self.DEVICE_PRELOAD_LIMIT_BYTES is not None:
-            return self.DEVICE_PRELOAD_LIMIT_BYTES
-        if self.device.type != "cuda":
+        return self.preload_limit(self.device)
+
+    @classmethod
+    def preload_limit(cls, device: torch.device) -> float:
+        """Bytes of raw frames above which they stay on the host."""
+        if cls.DEVICE_PRELOAD_LIMIT_BYTES is not None:
+            return cls.DEVICE_PRELOAD_LIMIT_BYTES
+        if device.type != "cuda":
             return float("inf")
-        return DEVICE_PRELOAD_SHARE * torch.cuda.mem_get_info(self.device)[0]
+        return DEVICE_PRELOAD_SHARE * torch.cuda.mem_get_info(device)[0]
 
     def get_frames_per_second(self):
         return self.fps
@@ -513,3 +539,70 @@ class fvvdp_video_source_packed_array(fvvdp_video_source_dm):
         L = channels_to_luminance(lambda c: RGB[c], self.dm_photometry,
                                   self.color_to_luminance)
         return L[None, None, None]      # (1, 1, 1, H, W)
+
+
+class PairBatch:
+    """N test/reference pairs from arrays or tensors with a batch axis, as
+    luminance on the device a chunk of pairs at a time: the counterpart of
+    ``_batch_to_luminance`` (``fovvideovdp_tpu/video_source.py:93-103``),
+    which converts the whole batch at once.
+
+    A batch on the host goes to the device whole when the pair takes at most
+    the array source's residency limit
+    (:meth:`fvvdp_video_source_array.preload_limit`); else it stays on the
+    host and each chunk goes up when it is asked for, through the staged
+    pinned copy.  A batch on the card is read where it is.  The checks and
+    their words are ``fvvdp.predict_batch``'s in the JAX package."""
+
+    def __init__(self, test, reference, dim_order: str, fps, dm, rgb2y, device):
+        t, r = _as_stored(test), _as_stored(reference)
+        dims = dim_order.upper()
+        shape = tuple(reshuffle_dims(t, dims, "BCFHW").shape)
+        if shape != tuple(reshuffle_dims(r, dims, "BCFHW").shape):
+            raise RuntimeError("Test and reference batches must have the same shape")
+        N, C, F, H, W = shape
+        if F > 1 and fps <= 0:
+            raise RuntimeError(
+                "When passing video sequences, you must set 'frames_per_second' parameter")
+        if C not in (1, 3):
+            raise RuntimeError("The content must have either 1 or 3 colour channels.")
+        self.shape = shape
+        self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" is the current card, the device its tensors report
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self._dm, self._rgb2y = dm, rgb2y
+        self._dims = dims
+        if t.device.type == "cpu" and \
+                2 * t.numel() * t.element_size() <= fvvdp_video_source_array.preload_limit(
+                    self.device):
+            t, r = _upload_bcfhw(t, dims, self.device), _upload_bcfhw(r, dims, self.device)
+            self._dims = "BCFHW"
+        self._t, self._r = t, r
+
+    def _raw(self, x: torch.Tensor, start: int, count: int, frames) -> torch.Tensor:
+        """Raw pairs start..start+count-1 of x, at ``frames``, as (count, C,
+        n, H, W) on the device.  The selection is made in x's own dim
+        order, so that a host chunk goes up as its stored bytes."""
+        x = x.narrow(self._dims.index("B"), start, count)
+        if frames is not None and "F" in self._dims:
+            f = self._dims.index("F")
+            if isinstance(frames, slice):
+                x = x.narrow(f, frames.start, frames.stop - frames.start)
+            else:
+                x = x.index_select(f, torch.as_tensor(np.asarray(frames, dtype=np.int64),
+                                                      device=x.device))
+        if x.device != self.device:
+            return _upload_bcfhw(x, self._dims, self.device)
+        return reshuffle_dims(x, self._dims, "BCFHW")
+
+    def luminance(self, start: int, count: int,
+                  frames: Union[None, slice, np.ndarray] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(count, n, H, W) float32 test and reference luminance of pairs
+        start..start+count-1 on the device: all F frames, or those at
+        ``frames`` (a slice, or an index array for the temporal padding)."""
+        return tuple(
+            _luminance_cfirst(self._raw(x, start, count, frames).transpose(0, 1), self._dm,
+                              self._rgb2y)
+            for x in (self._t, self._r))

@@ -176,12 +176,24 @@ def test_missing_inputs_and_bad_heatmap(image_pair):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(do_temporal_channels=False), "item 3"), (dict(ignore_boundary_pixels=True), "item 3"),
+    (dict(do_temporal_channels=False), None), (dict(ignore_boundary_pixels=True), "item 3"),
     (dict(band_callback=print), "item 3"), (dict(content_mapping=object()), "item 3"),
     (dict(parameter_overrides={"contrast": "log"}), "item 3"),
     (dict(parameter_overrides={"csf_sigma": -2.0}), "item 4"),
 ], ids=["temporal", "boundary", "callback", "content", "contrast", "csf"])
 def test_unported_options_name_their_current_item(kwargs, item):
+    """Each option the port lacks names its ROADMAP item; a ported one
+    (item None) scores as the JAX package does."""
+    if item is None:
+        rng = np.random.RandomState(11)
+        ref = (rng.rand(24, 40, 3, 4) * 255).astype(np.uint8)
+        tst = np.clip(ref.astype(np.int16) + rng.randint(-20, 20, ref.shape),
+                      0, 255).astype(np.uint8)
+        call = dict(dim_order="HWCF", frames_per_second=30)
+        Q_p, s_p = port_fvvdp(device="cpu", **kwargs).predict(tst, ref, **call)
+        Q_j, _ = fv_jax.fvvdp(**kwargs).predict(tst, ref, **call)
+        assert abs(Q_p - Q_j) <= 1e-4 and np.all(s_p["Q_per_ch"][:, 1] == 0)
+        return
     with pytest.raises(NotImplementedError, match=item + r"\b"):
         port_fvvdp(device="cpu", **kwargs)
 

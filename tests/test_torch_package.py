@@ -2,7 +2,8 @@
 it refuses, and (on a CUDA card only) each hand-written kernel against its
 plain PyTorch version.
 
-The CPU tests need no JAX.  The ``gpu`` tests skip without a card; on the
+The CPU tests need no JAX but one, which holds the ``do_temporal_channels``
+ablation to the JAX package.  The ``gpu`` tests skip without a card; on the
 card run them without the repo's JAX-pinning conftest:
 ``python -m pytest --noconftest -m gpu tests/test_torch_package.py``.
 """
@@ -112,6 +113,16 @@ def test_data_copies_match_the_jax_package(fname):
 ], ids=lambda kw: "-".join(f"{k}" for k in kw) + "-" + "-".join(
     f"{k}" for k in (kw.get("parameter_overrides") or {})))
 def test_unsupported_options_raise(kwargs):
+    """Each option the port lacks raises and names its ROADMAP item; the
+    ported ``do_temporal_channels=False`` scores as the JAX package does."""
+    if kwargs == dict(do_temporal_channels=False):
+        import fovvideovdp_tpu as fv_jax        # the one case that needs JAX
+        test, ref = _tiny_video(shape=(40, 56, 3, 6))
+        call = dict(dim_order="HWCF", frames_per_second=30)
+        Q_p, s_p = fvvdp(device="cpu", **kwargs).predict(test, ref, **call)
+        Q_j, _ = fv_jax.fvvdp(**kwargs).predict(test, ref, **call)
+        assert abs(Q_p - Q_j) <= 1e-4 and np.all(s_p["Q_per_ch"][:, 1] == 0)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fvvdp(device="cpu", **kwargs)
 
@@ -674,6 +685,70 @@ def test_card_routes_match_cpu_and_launch_their_kernels(cuda, route):
     if route == "heatmap":
         np.testing.assert_allclose(s_gpu["heatmap"].astype(np.float32),
                                    s_cpu["heatmap"].astype(np.float32), atol=5e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["images", "clips", "streamed_clips", "shared_gaze",
+                                  "gaze_per_pair", "ablation", "host_images", "host_clips",
+                                  "host_streamed_clips", "host_ablation"])
+def test_card_batch_matches_cpu_and_launches_its_kernels(cuda, case, monkeypatch):
+    """predict_batch and the do_temporal_channels=False ablation on the card
+    against device="cpu", each with the kernels its route launches: whole
+    clips launch temporal_pair once per clip (an empty carry), streamed ones
+    once per block.  The host_ cases keep the raw frames on the host (the
+    array source's residency limit at 0): a batch goes up a chunk of pairs
+    at a time, the ablation's frames a chunk at a time through the pinned
+    staging buffers, the next chunk prefetched."""
+    host = case.startswith("host_")
+    case = case[len("host_"):] if host else case
+    if host:
+        monkeypatch.setattr(fvt.fvvdp_video_source_array, "DEVICE_PRELOAD_LIMIT_BYTES", 0)
+    test, ref = _tiny_video(shape=(67, 131, 3, 10))
+    batch_t = np.stack([test, np.roll(test, 5, axis=1), ref])
+    batch_r = np.stack([ref, ref, np.roll(ref, 3, axis=0)])
+    opts, kw = dict(display_name="standard_fhd"), dict(dim_order="BHWC")
+    launched, idle = ("gausspyr_reduce", "expand_score2"), ("temporal_pair", "mov_score")
+    if case.endswith("clips"):
+        kw = dict(dim_order="BHWCF", frames_per_second=30)
+        launched, idle = launched + ("temporal_pair",), ("expand_contrast",)
+        if case == "streamed_clips":
+            opts["block_frames"] = 4
+    else:
+        batch_t, batch_r = batch_t[..., 0], batch_r[..., 0]
+    if case in ("shared_gaze", "gaze_per_pair"):
+        opts["foveated"] = True
+        kw["fixation_point"] = np.array([30, 20]) if case == "shared_gaze" \
+            else np.array([[30, 20], [100, 60], [0, 0]])
+        launched = ("expand_contrast",) + (
+            ("band_score2_fov",) if case == "shared_gaze" else ("mov_score",))
+        idle = ("expand_score2",) + (
+            ("mov_score",) if case == "shared_gaze" else ("band_score2_fov",))
+    if host and case in ("images", "ablation"):
+        opts["block_frames"] = 2                    # several chunks
+    if case == "ablation":
+        opts["do_temporal_channels"] = False
+        cuda_ops.reset_launch_counts()
+        q_gpu, s_gpu = fvvdp(device=cuda, **opts).predict(test, ref, dim_order="HWCF",
+                                                           frames_per_second=30)
+        counts = cuda_ops.launch_counts()
+        q_cpu, s_cpu = fvvdp(device="cpu", **opts).predict(test, ref, dim_order="HWCF",
+                                                           frames_per_second=30)
+        assert np.all(s_gpu["Q_per_ch"][:, 1] == 0)
+        q_gpu, q_cpu = np.array([q_gpu]), np.array([q_cpu])
+    else:
+        q_cpu, s_cpu = fvvdp(device="cpu", **opts).predict_batch(batch_t, batch_r, **kw)
+        cuda_ops.reset_launch_counts()
+        q_gpu, s_gpu = fvvdp(device=cuda, **opts).predict_batch(batch_t, batch_r, **kw)
+        counts = cuda_ops.launch_counts()
+    assert all(counts[k] > 0 for k in launched), counts
+    assert all(counts[k] == 0 for k in idle), counts
+    if case == "clips":
+        assert counts["temporal_pair"] == 3
+    if case == "streamed_clips":
+        assert counts["temporal_pair"] == 3 * 3
+    np.testing.assert_allclose(q_gpu, q_cpu, rtol=0, atol=1e-3)
+    if "Q_per_ch" in s_cpu:
+        np.testing.assert_allclose(s_gpu["Q_per_ch"], s_cpu["Q_per_ch"], rtol=1e-3, atol=1e-5)
 
 
 def _mov_inputs(F, h, w, n_e, ny, nr, two, device, seed=8):
