@@ -101,6 +101,23 @@ Phases, each raising on failure:
      ablation in one chunk and in chunks of 3, each against the CPU's JODs;
      the 4K ablation streamed from the host in chunks of at most 32 frames
      against its resident run, with its peak);
+  8d. the metric's ablations and options and the CSF cache's search order:
+     on the 60-frame 4K clip, local_adapt="gpyr2" with contrast="log"
+     (gausspyr_reduce and temporal_pair launch, nothing else), the
+     contrast_difference_perc_norm masking with pu_dilate=0.5 (and
+     expand_contrast, no scorer), ignore_boundary_pixels with an
+     equirectangular content mapping, foveated at the centre (expand_contrast,
+     no mov_score, no table), and csf_sigma=-2.0 (a generated LUT on the
+     default route: expand_score2): the JOD, first and warm wall time, block
+     frames, peak bytes per pixel-frame and launches of each; the seconds of
+     generating a LUT; then every option group (the five adaptations, log
+     contrast, both masking ablations, pu_dilate, ignored boundary pixels,
+     the band callback, a content mapping, "simple" with a fixed and a
+     moving gaze, a raw heatmap with ignored boundary pixels, csf_sigma,
+     k_cm, LUTs read from .mat caches on non-uniform grids) at 960x540x8 on
+     the card against device="cpu" (|dJOD| <= 1e-4, 1e-3 foveated), with the
+     card's peak bytes per pixel-frame; predict_batch and predict_traced
+     under log contrast likewise;
   9. the kernels line, then the result line.
 
 Every path has its own expectation of which kernels must launch and which
@@ -136,6 +153,11 @@ result line;
     python3 chip_smoke.py --batch
 
 runs phases 1, 2 and 8c only (batches and the ablation), and prints no
+result line;
+
+    python3 chip_smoke.py --options
+
+runs phases 1, 2 and 8d only (the ablations and options), and prints no
 result line.
 """
 import contextlib
@@ -1970,6 +1992,232 @@ def batch_phases(dev, smi, test_v, ref_v):
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------------------
+# 8d. the ablations and options, and the CSF cache's search order
+# ---------------------------------------------------------------------------
+
+OPT_H, OPT_W = 540, 960   # the card-against-CPU size of phase 8d (the CPU's
+                          # composition of a 1080p clip takes ~4x as long)
+OPT_TOL, OPT_TOL_FOV = 1e-4, 1e-3
+KERNEL_ROUTE = ("gausspyr_reduce", "temporal_pair")
+
+
+def equirect(w, h):
+    return fvt.fvvdp_content_mapping_equirect(w, h)
+
+
+# The four configurations phase 8d drives at full width on the 4K clip: the
+# metric's options, the fixation point, and the kernels JAX's gating
+# (fovvideovdp_tpu/core.py:418-449) launches for them.
+OPT_CONFIGS = {
+    # another adaptation and log contrast: the Laplacian decomposition of
+    # the reduce kernel's pyramid, composed in tensor operations
+    "gpyr2_log": (dict(parameter_overrides={"local_adapt": "gpyr2", "contrast": "log"}),
+                  None, KERNEL_ROUTE),
+    # a masking ablation under gpyr with Weber contrast: expand_contrast, no scorer
+    "masking_pu_dilate": (dict(parameter_overrides={
+        "masking_model": "contrast_difference_perc_norm", "pu_dilate": 0.5}),
+        None, KERNEL_ROUTE + ("expand_contrast",)),
+    # foveated 360 content: a gaze per frame from the one point, no tables,
+    # never mov_score
+    "boundary_content_mapping": (dict(ignore_boundary_pixels=True, foveated=True,
+                                      content_mapping=equirect(W, H)),
+                                 np.array([W // 2, H // 2]),
+                                 KERNEL_ROUTE + ("expand_contrast",)),
+    # a generated LUT (no packaged .npz for sigma = -2): the default route
+    "csf_sigma": (dict(parameter_overrides={"csf_sigma": -2.0}), None,
+                  KERNEL_ROUTE + ("expand_score2",)),
+}
+
+
+def warped_lut(omega, n=12):
+    """A CSF LUT in the reference's cache format on grids warped away from
+    uniform (tests/test_round2_fixes.py:104-109), its S from the analytic
+    model: what a user's .mat cache may hold."""
+    from fovvideovdp_tpu_torch import csf_generator
+
+    def warp(lo, hi):
+        u = np.linspace(0.0, 1.0, n)
+        return (lo + (hi - lo) * u ** 1.35).astype(np.float32)
+    Y_log, rho_log, ecc_sqrt = warp(np.log2(1e-3), np.log2(1e4)), warp(-4.0, 6.0), \
+        warp(0.0, np.sqrt(120.0))
+    Y, rho, ecc = 2.0 ** Y_log, 2.0 ** rho_log, ecc_sqrt ** 2
+    Yg, rg, eg = np.meshgrid(Y, rho, ecc, indexing="ij")
+    S = np.maximum(csf_generator.sensitivity(rg, omega, Yg, eg, -1.5, 0.604562), 1e-4)
+    return dict(Y=Y, rho=rho, ecc=ecc, Y_log=Y_log, rho_log=rho_log, ecc_sqrt=ecc_sqrt,
+                S_log=np.log2(S).reshape(n, n, n).astype(np.float32))
+
+
+def mat_luts(tmp, device):
+    """Both channels' warped LUTs written as .mat caches under ``tmp`` and
+    read back through CSFCache's search (key sigma = -1.7, no .npz)."""
+    import scipy.io as sio
+    from fovvideovdp_tpu_torch import csf
+    for omega in (0.0, 5.0):
+        sio.savemat(os.path.join(tmp, csf.cache_key(omega, -1.7, 0.604562) + "_gpu0.mat"),
+                    {"lut": {k: np.asarray(v, np.float64)
+                             for k, v in warped_lut(omega).items()}})
+    cache = csf.CSFCache(device, extra_dirs=[tmp])
+    luts = [cache.get(omega, -1.7, 0.604562) for omega in (0.0, 5.0)]
+    if any(all(l["_uniform"].values()) for l in luts):
+        raise AssertionError("the .mat LUTs were not read on their non-uniform grids")
+    return luts
+
+
+def option_groups(w, h):
+    """Every option group of phase 8d's card-against-CPU check: (fvvdp
+    keyword arguments, predict keyword arguments, foveated)."""
+    mid = np.array([w // 3, h // 2])
+    rows = sweeping_gaze(w, h, HEAT_FRAMES)
+    la = lambda v, **o: dict(parameter_overrides=dict(local_adapt=v, **o))  # noqa: E731
+    return {
+        "simple": (la("simple"), {}, False), "global": (la("global"), {}, False),
+        "gpyr0": (la("gpyr0"), {}, False), "gpyr2": (la("gpyr2"), {}, False),
+        "log": (dict(parameter_overrides={"contrast": "log"}), {}, False),
+        "log_gpyr0": (la("gpyr0", contrast="log"), {}, False),
+        "contrast_difference": (dict(parameter_overrides={
+            "masking_model": "contrast_difference"}), {}, False),
+        "contrast_difference_perc_norm": (dict(parameter_overrides={
+            "masking_model": "contrast_difference_perc_norm"}), {}, False),
+        "pu_dilate": (dict(parameter_overrides={"pu_dilate": 0.5}), {}, False),
+        "ignore_boundary_pixels": (dict(ignore_boundary_pixels=True), {}, False),
+        "band_callback": (dict(band_callback=lambda *a: None), {}, False),
+        "content_mapping": (dict(foveated=True, content_mapping=equirect(w, h)),
+                            dict(fixation_point=mid), True),
+        "simple_fixed_gaze": (dict(foveated=True, **la("simple")),
+                              dict(fixation_point=mid), True),
+        "simple_moving_gaze": (dict(foveated=True, **la("simple")),
+                               dict(fixation_point=rows), True),
+        "raw_heatmap_boundary": (dict(heatmap="raw", ignore_boundary_pixels=True), {}, False),
+        "csf_sigma": (dict(parameter_overrides={"csf_sigma": -2.0}), {}, False),
+        "k_cm": (dict(parameter_overrides={"k_cm": 0.5}), {}, False),
+        "mat_non_uniform": ("mat", {}, False),
+    }
+
+
+def options_vs_cpu(dev, smi, tmp):
+    """Each option group at OPT_H x OPT_W x 8 frames on the card against
+    device="cpu" (JOD within OPT_TOL, OPT_TOL_FOV when foveated), with the
+    card's peak bytes per pixel-frame of the block; predict_batch of 4
+    images and predict_traced of one image under log contrast likewise."""
+    test_v, ref_v = synth_clip(OPT_H, OPT_W, HEAT_FRAMES)
+    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    fvvdp_mod = importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
+    out, bad = {}, {}
+    luts = {d: mat_luts(tmp, d) for d in (dev, "cpu")}
+    half = HEAT_FRAMES // 2
+    for group, (kw, call, foveated) in option_groups(OPT_W, OPT_H).items():
+        jods = {}
+        for d in (dev, "cpu"):
+            fv = fvt.fvvdp(display_name="standard_fhd", device=d,
+                           **({} if kw == "mat" else kw))
+            if kw == "mat":
+                fv.load_state(fv.parameters, luts[d])
+            jods[d], _ = fv.predict(test_v, ref_v, **video_kw, **call)
+            if d != dev:
+                continue
+            # the block's bytes per pixel-frame: the slope of the peak between
+            # blocks of 8 and 4 frames, after a first call that built what
+            # stays (fixed-gaze tables), so that nothing fixed counts
+            peaks, q_blocks = [], []
+            for bf in (None, half):
+                fv.block_frames = bf
+                torch.cuda.synchronize()
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                q_blocks.append(fv.predict(test_v, ref_v, **video_kw, **call)[0])
+                peaks.append(torch.cuda.max_memory_allocated() - resident)
+            fv.block_frames = None
+            core = fv._get_core(OPT_W, OPT_H)
+            route = fvvdp_mod._memory_route(core, foveated and "fixed" not in group)
+            B = fv._pick_block_size(OPT_H, OPT_W, HEAT_FRAMES, route)
+        err = abs(jods[dev] - jods["cpu"])
+        out[group] = dict(jod=jods[dev], jod_cpu=jods["cpu"], abs_err=err,
+                          jod_blocks_of_4=q_blocks[1], route=core.route, memory_route=route,
+                          block_frames=B, peak_bytes=peaks,
+                          peak_bytes_per_px_frame=peaks[0] / (B * OPT_H * OPT_W),
+                          block_bytes_per_px_frame=(peaks[0] - peaks[1])
+                          / ((B - half) * OPT_H * OPT_W))
+        if not err <= (OPT_TOL_FOV if foveated else OPT_TOL) \
+                or not abs(q_blocks[1] - jods[dev]) <= 1e-5:
+            bad[group] = (err, q_blocks)
+    img_t, img_r = test_v[..., 0], ref_v[..., 0]
+    log = dict(parameter_overrides={"contrast": "log"})
+    batch_t = np.stack([img_t, np.roll(img_t, 7, axis=1), img_r, np.roll(img_r, 3, axis=0)])
+    batch_r = np.stack([img_r, img_r, np.roll(img_r, 5, axis=1), img_r])
+    jods = {d: fvt.fvvdp(display_name="standard_fhd", device=d, **log).predict_batch(
+        batch_t, batch_r, dim_order="BHWC")[0] for d in (dev, "cpu")}
+    err = float(np.max(np.abs(jods[dev] - jods["cpu"])))
+    out["batch_log"] = dict(jods=jods[dev].tolist(), jods_cpu=jods["cpu"].tolist(),
+                            abs_err=err)
+    if not err <= OPT_TOL:
+        bad["batch_log"] = err
+    x = img_t.astype(np.float32) / 255.0
+    y = img_r.astype(np.float32) / 255.0
+    jods = {d: float(fvt.fvvdp(display_name="standard_fhd", device=d, **log).predict_traced(
+        x, y, dim_order="HWC")) for d in (dev, "cpu")}
+    err = abs(jods[dev] - jods["cpu"])
+    out["traced_log"] = dict(jod=jods[dev], jod_cpu=jods["cpu"], abs_err=err)
+    if not err <= OPT_TOL:
+        bad["traced_log"] = err
+    return out, bad
+
+
+def options_phase(dev, smi, test_v, ref_v):
+    """Phase 8d: the four OPT_CONFIGS on the 60-frame 4K clip (JOD, first and
+    warm wall time, block frames, peak bytes per pixel-frame, launches per
+    kernel, each launch JAX's gating forbids an error; the generated LUT's
+    seconds), then every option group against the CPU.  Returns each
+    configuration's launches."""
+    video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    fvvdp_mod = importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
+    launches = {}
+    for name, (kw, gaze, must) in OPT_CONFIGS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fv = fvt.fvvdp(display_name="standard_4k", **kw)
+        build_s = time.perf_counter() - t0
+        call = dict(video_kw) if gaze is None else dict(video_kw, fixation_point=gaze)
+        t0 = time.perf_counter()
+        (q, stats), counts = counted(lambda: fv.predict(test_v, ref_v, **call))
+        first_s = time.perf_counter() - t0
+        launches[name] = counts
+        expect_launches(f"options {name}", counts, must, not_launched(must))
+        core = fv._get_core(W, H)
+        q_pc = stats["Q_per_ch"]
+        if not np.isfinite(q) or not 0.0 <= q <= 10.0 or not np.all(np.isfinite(q_pc)) \
+                or q_pc.shape != (core.plan.height, 2, N_FRAMES):
+            raise AssertionError(f"options {name}: JOD {q}, Q_per_ch {q_pc.shape}")
+        if core._fov_table_cache or core.fov_table_bytes():
+            raise AssertionError(f"options {name}: fixed-gaze tables were built")
+        route = fvvdp_mod._memory_route(core, gaze is not None)
+        B = fv._pick_block_size(H, W, N_FRAMES, route)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times, warm_s = warm_seconds(lambda: fv.predict(test_v, ref_v, **call), runs=2)
+        peak = torch.cuda.max_memory_allocated() - resident
+        emit(dict(phase="options", config=name, nvidia_smi=smi, jod=q, first_call_s=first_s,
+                  warm_s_runs=times, warm_s_median=warm_s, fps=N_FRAMES / warm_s,
+                  route=core.route, memory_route=route, block_frames=B, peak_bytes=peak,
+                  peak_bytes_per_px_frame=peak / (B * H * W), launches=counts,
+                  metric_build_s=build_s))
+        del fv, core
+        torch.cuda.empty_cache()
+    from fovvideovdp_tpu_torch import csf_generator
+    t0 = time.perf_counter()
+    csf_generator.precompute_lut(0.0, -2.0, 0.604562)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        groups, bad = options_vs_cpu(torch.device("cuda"), smi, tmp)
+    emit(dict(phase="options_vs_cpu", nvidia_smi=smi, shape=[OPT_H, OPT_W, HEAT_FRAMES],
+              generate_lut_s=gen_s, groups=groups, seconds=time.perf_counter() - t0))
+    if bad:
+        raise AssertionError(f"options_vs_cpu: card against CPU over the bars: {bad}")
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1983,6 +2231,7 @@ def main():
         return time_upload(dev)
     traced_only = "--traced" in sys.argv
     batch_only = "--batch" in sys.argv
+    options_only = "--options" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -2010,6 +2259,9 @@ def main():
         return 0
     if batch_only:
         batch_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
+        return 0
+    if options_only:
+        options_phase(dev, smi, *synth_clip(H, W, N_FRAMES))
         return 0
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
@@ -2444,6 +2696,9 @@ def main():
     # 8c. batches of pairs and the ablation
     batch = batch_phases(dev, smi, test_v, ref_v)
 
+    # 8d. the ablations and options
+    options = options_phase(dev, smi, test_v, ref_v)
+
     # 9. kernels line, result line
     print(smi, flush=True)
     summary = kernel_summary(cases["rows"], path_launches)
@@ -2453,6 +2708,9 @@ def main():
         # launches in each case of phase 8c (temporal_pair in batch_clips:
         # once per clip, with an empty carry)
         row["batch_launches"] = {case: counts[row["name"]] for case, counts in batch.items()}
+        # launches in each full-width configuration of phase 8d
+        row["options_launches"] = {case: counts[row["name"]]
+                                   for case, counts in options.items()}
     emit(dict(kernels=summary))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))

@@ -7,11 +7,17 @@ sources in ``csrc/``): the default configuration, foveation with a fixed or
 a per-frame gaze, heatmaps and per-channel CSF LUTs.  ``device="cpu"``
 runs the kernels' plain PyTorch versions instead.  ``fvvdp.predict_traced``,
 ``fvvdp.loss`` and ``fvvdp_torch_loss`` make the metric a differentiable
-training loss, each kernel behind a ``torch.autograd.Function``.  Files are read by
+training loss, each kernel behind a ``torch.autograd.Function``.  The MATLAB
+core's ablations and options (``local_adapt``, log contrast, the masking
+ablations, ``pu_dilate``, ``ignore_boundary_pixels``, ``band_callback``, the
+360° ``fvvdp_content_mapping_equirect``) score on the composed route, and a
+CSF LUT comes from the packaged ``.npz`` files, a user ``.mat`` cache or the
+analytic generator, in that order.  Files are read by
 ``fvvdp_video_source_file`` (images, raw ``.yuv``, videos through ffmpeg or
 OpenCV) and scored from the command line by ``fvvdp-torch``
 (``python -m fovvideovdp_tpu_torch.run_fvvdp``).
 """
+from fovvideovdp_tpu_torch.content_mapping import fvvdp_content_mapping_equirect
 from fovvideovdp_tpu_torch.display_model import (
     fvvdp_display_geometry,
     fvvdp_display_photo_absolute,
@@ -36,6 +42,7 @@ __version__ = "0.1.0"
 __all__ = [
     "fvvdp",
     "fvvdp_torch_loss",
+    "fvvdp_content_mapping_equirect",
     "fvvdp_display_photometry",
     "fvvdp_display_photo_eotf",
     "fvvdp_display_photo_absolute",

@@ -1,29 +1,34 @@
 """Metric core: scoring of frame blocks.
 
-Counterpart of ``fovvideovdp_tpu/core.py:47-257,287-332,382-449,451-668,
-673-721,848-901`` for ``local_adapt`` "gpyr", Weber contrast and
-'min_mutual_masking_perc_norm2' masking, on LUTs with a uniform Y grid.
+Counterpart of ``fovvideovdp_tpu/core.py:47-257,287-668,673-721,848-901``.
 Per block: temporal channels (CUDA kernel), Gaussian pyramid (reduce
-kernel), then one of five routes per level:
+kernel), then one of four routes per level, following the JAX package's
+gating (``fovvideovdp_tpu/core.py:418-449``):
 
-* default (no foveation, no heatmap, both LUTs on one Y grid): the fused
-  expand + score kernel; contrast never reaches memory;
-* fixed-gaze foveation: expand_contrast kernel, then band_score2_fov with
-  the per-pixel CSF tables of the fixation point;
-* moving-gaze foveation (a gaze per frame): expand_contrast, then mov_score,
-  which finds each pixel's eccentricity from the frame's gaze and
-  interpolates the band's LUT window itself; no tables are built;
-* per-channel LUTs (Y grids differ): expand_contrast, then band_score once
-  per temporal channel;
-* heatmaps (and foveation on per-channel LUTs, and a moving gaze on LUTs
-  whose rho or eccentricity axis is not uniform): expand_contrast, then the
-  per-pixel composition in tensor operations, which keeps the difference
-  map D of every level for the reconstruction.
+* fused (no foveation, no heatmap, both LUTs on one uniform Y grid, the
+  default options): the fused expand + score kernel; contrast never
+  reaches memory;
+* banded: the expand_contrast kernel, then a band scorer: band_score2_fov
+  with the per-pixel CSF tables of a fixed fixation point; mov_score, which
+  finds each pixel's eccentricity from the frame's gaze and interpolates
+  the band's LUT window itself (no tables); or band_score once per temporal
+  channel when the channels' Y grids differ (per-channel LUTs);
+* composed: the per-pixel composition in tensor operations.  Heatmaps take
+  it, and so does every configuration the kernels cannot score, as in the
+  JAX package: the ``local_adapt`` variants "simple", "global", "gpyr0" and
+  "gpyr2", log contrast, the masking ablations, ``pu_dilate``,
+  ``ignore_boundary_pixels``, ``band_callback``, a content mapping
+  (foveated), a LUT whose Y grid is not uniform, foveation on per-channel
+  LUTs, and a gaze per frame on LUTs whose rho or eccentricity axis is not
+  uniform.  Under "gpyr" with Weber contrast its levels come from the
+  expand_contrast kernel; the other adaptations and log contrast decompose
+  the Gaussian pyramid (reduce kernel) into Laplacian bands in tensor
+  operations (``_adapted_levels``).
 
 The route is fixed when the core is built, never chosen on a failure.
 
 Layout: (F, C, H, W) with C = [T-sust, R-sust, T-trans, R-trans]; an image
-has C = 2.
+has C = 2.  Under log contrast the responses are of log10 luminance.
 """
 from __future__ import annotations
 
@@ -33,19 +38,29 @@ import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch import csf as csf_mod
+from fovvideovdp_tpu_torch import utils
+from fovvideovdp_tpu_torch.io import resize
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
-from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
+from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan, gausspyr_expand
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
+
+
+LOCAL_ADAPT = ("gpyr", "gpyr0", "gpyr2", "simple", "global")
+MASKING_MODELS = ("min_mutual_masking_perc_norm2", "contrast_difference",
+                  "contrast_difference_perc_norm")
 
 
 class MetricCore:
     """Static per-resolution state (pyramid plan, per-band CSF tables,
     foveation maps) and the block scorers.  ``heatmap`` and
-    ``heatmap_dtype`` come checked from ``fvvdp``."""
+    ``heatmap_dtype`` come checked from ``fvvdp``; the options
+    (``content_mapping``, ``ignore_boundary_pixels``, ``band_callback``,
+    and ``local_adapt``, ``contrast``, ``masking_model``, ``pu_dilate`` of
+    ``params``) as the JAX package's core takes them."""
 
     # Fixed-gaze table sets kept per core: as many as fit a quarter of the
     # card's memory, between 1 and 8 (one 4K set is 1.68 GB, so an 80 GB
@@ -57,7 +72,9 @@ class MetricCore:
 
     def __init__(self, plan: PyramidPlan, params: Dict, luts: Sequence[Dict],
                  device, peak_luminance=None, geometry=None, foveated: bool = False,
-                 heatmap: Optional[str] = None, heatmap_dtype: str = "float16"):
+                 heatmap: Optional[str] = None, heatmap_dtype: str = "float16",
+                 content_mapping=None, ignore_boundary_pixels: bool = False,
+                 band_callback: Optional[Callable] = None):
         self.plan = plan
         self.params = params
         self.luts = tuple(luts)
@@ -68,18 +85,37 @@ class MetricCore:
         self.heatmap = heatmap
         self.do_heatmap = heatmap is not None and heatmap != "none"
         self.heatmap_dtype = heatmap_dtype
+        # a mapping matters only when foveated: it replaces the display's
+        # eccentricity, and a fixation point becomes a gaze per frame
+        self.content_mapping = content_mapping if self.foveated else None
+        self.ignore_boundary_pixels = bool(ignore_boundary_pixels)
+        self.band_callback = band_callback
+        self.local_adapt = params.get("local_adapt", "gpyr")
+        self.log_contrast = params.get("contrast", "weber") == "log"
+        self.masking_model = params.get("masking_model", "min_mutual_masking_perc_norm2")
+        self.pu_dilate = float(params.get("pu_dilate", 0.0))
+        if self.local_adapt not in LOCAL_ADAPT:
+            raise RuntimeError(f"Unknown type of local adaptation: {self.local_adapt}")
+        if self.masking_model not in MASKING_MODELS:
+            raise RuntimeError(f"Unknown masking model: {self.masking_model}")
         if len(self.luts) < 2:
             raise ValueError("the metric needs one LUT per temporal channel (2)")
-        if not all(csf_mod._axis_uniform(l, "Y_log") for l in self.luts):
-            raise NotImplementedError(
-                "LUTs with a non-uniform Y grid take the unfused scorer, "
-                "ROADMAP queue 1 item 3")
         self._luts_share_Y = all(
             np.array_equal(csf_mod._np(self.luts[0][k]), csf_mod._np(self.luts[1][k]))
             for k in ("Y_log", "Y"))
 
-        # which scorer score_frames takes (see the module's docstring)
-        if self.do_heatmap or (self.foveated and not self._luts_share_Y):
+        # Which scorer score_frames takes (see the module's docstring).  The
+        # kernels score "gpyr" with Weber contrast and the calibrated masking
+        # on a Y grid uniform in log2 (their LUT coordinate is index
+        # arithmetic): JAX's fused_base (fovvideovdp_tpu/core.py:418-442).
+        kernels_score = (self.local_adapt == "gpyr" and not self.log_contrast
+                         and self.masking_model == MASKING_MODELS[0]
+                         and self.pu_dilate == 0.0
+                         and all(csf_mod._axis_uniform(l, "Y_log") for l in self.luts)
+                         and not self.ignore_boundary_pixels
+                         and self.band_callback is None
+                         and self.content_mapping is None)
+        if self.do_heatmap or not kernels_score or (self.foveated and not self._luts_share_Y):
             self.route = "composed"
         elif self.foveated or not self._luts_share_Y:
             self.route = "banded"
@@ -124,7 +160,7 @@ class MetricCore:
         # Per-channel LUTs: each channel's own table and Y grid.
         self._channel_tables: List = []
         self._channel_meta: List = []
-        if not self.foveated and self._luts_share_Y:
+        if self.route == "fused":
             lut2 = self.luts[0]
             for bb in range(plan.height):
                 t2, lut2 = csf_mod.trim_lut_range(np.stack(self._band_tables[bb]),
@@ -132,7 +168,7 @@ class MetricCore:
                 self._score_tables.append(self._to_device(t2))
             self._score_lut = lut2
             self._meta = [self._score_meta(lut2, bb) for bb in range(plan.height)]
-        elif not self.foveated:
+        elif self.route == "banded" and not self.foveated:
             for bb in range(plan.height):
                 self._channel_tables.append(tuple(
                     self._to_device(t) for t in self._band_tables[bb]))
@@ -141,17 +177,21 @@ class MetricCore:
 
         # Fixed gaze: the per-pixel tables get the same Y-knot trim (32 -> 19
         # planes on a 200 cd/m^2 display), which cuts both the kernel's table
-        # reads and the memory the cached sets hold.
+        # reads and the memory the cached sets hold.  Only where L_bkg stays
+        # in [0.1, peak]: under "gpyr" with Weber contrast, as in the JAX
+        # package; the other adaptations and log contrast keep the full grid.
         self._fov_trim = None
         self._fov_lut = None
         self._fov_meta: List = []
         self._fov_table_cache: Dict = {}   # insertion-ordered: least recent first
         self._mov_cache: Dict = {}         # band -> static data of mov_score
-        if self.foveated and self._luts_share_Y:
+        if self.foveated and self._luts_share_Y and self.local_adapt == "gpyr" \
+                and not self.log_contrast:
             lo, hi, lut2 = csf_mod.trim_lut_bounds(self.luts[0], lbkg_max=peak_luminance)
             if lut2 is not self.luts[0]:
                 self._fov_trim = (lo, hi)
                 self._fov_lut = lut2
+        if self.foveated and self.route == "banded":
             self._fov_meta = [self._score_meta(self._fov_lut or self.luts[0], bb)
                               for bb in range(plan.height)]
 
@@ -176,7 +216,7 @@ class MetricCore:
     def fov_table_bytes(self) -> int:
         """Device bytes of one fixed-gaze table set (``fov_tables``): kept
         knots x h x w float32 planes per band per temporal channel."""
-        if not self.foveated:
+        if not self.foveated or self.content_mapping is not None:
             return 0
         if self._fov_trim is not None:
             n = self._fov_trim[1] - self._fov_trim[0] + 1
@@ -293,8 +333,9 @@ class MetricCore:
         """Score a block of temporal responses R (F, 2*temp_ch, H, W).  A
         foveated core takes either ``fov_tables``, the fixation point's
         tables from :meth:`fov_tables`, or ``gaze``, (F, 2) pixel
-        coordinates of the gaze in each frame.  Returns (Q_per_ch
-        (n_bands, 2, F), heatmap (F, c, H, W) or None)."""
+        coordinates of the gaze in each frame (always the latter with a
+        content mapping).  Returns (Q_per_ch (n_bands, 2, F), heatmap
+        (F, c, H, W) or None)."""
         if self.foveated and (fov_tables is None) == (gaze is None):
             raise ValueError("a foveated core scores with either the fixation "
                              "point's fov_tables or a per-frame gaze")
@@ -304,7 +345,9 @@ class MetricCore:
             if tuple(gaze.shape) != (R.shape[0], 2):
                 raise ValueError(f"gaze must be ({R.shape[0]}, 2), one row per frame "
                                  f"of the block, got {tuple(gaze.shape)}")
-            gaze_dir = self._gaze_directions(gaze)
+            gaze = torch.as_tensor(gaze, dtype=torch.float32, device=self.device)
+            gaze_dir = gaze if self.content_mapping is not None else \
+                self._gaze_directions(gaze)
         route = self.route if gaze_dir is None else self.moving_route
         if route == "composed":
             return self._score_frames_composed(R, temp_ch, fov_tables, gaze_dir)
@@ -388,11 +431,85 @@ class MetricCore:
             return csf_mod.sensitivity_pixel_tables(lut, fov_tables[bb][cc], L)
         return csf_mod.sensitivity_1d(self.luts[cc], self._band_tables[bb][cc], L)
 
+    def _adapted_levels(self, R: torch.Tensor):
+        """Per scored level, finest first: (band (F, C, h, w), L_bkg
+        (F, h, w), is_contrast), after ``fovvideovdp_tpu/core.py:315-380``
+        (the MATLAB core's adaptation modes, matlab/fvvdp_core.m:214-300).
+        Under "gpyr" with Weber contrast the bands are Weber contrast and
+        L_bkg is clamped to >= 0.1 (the expand_contrast kernel); otherwise
+        each band is the Laplacian level of the Gaussian pyramid (reduce
+        kernel) and L_bkg the adapting luminance of the reference's
+        sustained channel, in cd/m^2 also under log contrast."""
+        plan = self.plan
+        la = self.local_adapt
+        if la == "gpyr" and not self.log_contrast:
+            for band, L_bkg in plan.contrast_levels(R):
+                yield band, L_bkg[:, 0], True
+            return
+
+        def linear(g):            # the reference-sustained plane in cd/m^2
+            return torch.pow(10.0, g) if self.log_contrast else g
+
+        gpyr = plan.gaussian_pyramid(R)
+        if la == "simple":
+            # 0.5 deg Gaussian blur of the reference sustained channel
+            L_adapt = utils.ImGaussFilt(0.5 * plan.ppd).run(linear(R[:, 1])[:, None])[:, 0]
+        elif la == "global":
+            # geometric mean of the reference sustained channel, per frame
+            L_adapt = torch.exp(torch.mean(torch.log(utils.clip(linear(R[:, 1]), 1e-8)),
+                                           dim=(-2, -1)))
+        for bb in range(plan.height):
+            size = plan.level_shapes[bb]
+            band = gpyr[bb] - gausspyr_expand(gpyr[bb + 1], size)
+            if la == "gpyr":      # log contrast
+                L_bkg = gausspyr_expand(linear(gpyr[bb + 1][:, 1]), size)
+            elif la == "gpyr0":
+                L_bkg = linear(gpyr[bb][:, 1])
+            elif la == "gpyr2":
+                use_band = min(bb + 2, plan.height)
+                L_bkg = linear(gpyr[use_band][:, 1])
+                for br in range(use_band - 1, bb - 1, -1):
+                    L_bkg = gausspyr_expand(L_bkg, plan.level_shapes[br])
+            elif la == "simple":
+                L_bkg = utils.clip(resize(L_adapt, size, "cubic"), 1e-4)
+            else:                 # global
+                L_bkg = L_adapt[:, None, None].expand((L_adapt.shape[0],) + size)
+            yield band, L_bkg, False
+
+    def _apply_masking(self, T, Rf, N_nCSF, cc: int) -> torch.Tensor:
+        p = self.params
+        if self.masking_model == "contrast_difference":
+            D = torch.abs(T - Rf) / 0.05
+        elif self.masking_model == "contrast_difference_perc_norm":
+            D = torch.abs(T - Rf) / N_nCSF
+        else:
+            q = (p["mask_q_sust"], p["mask_q_trans"])[cc]
+            return mask_ops.apply_masking_model(T, Rf, N_nCSF, p["mask_p"], q, p["mask_c"],
+                                                pu_dilate=self.pu_dilate)
+        return utils.clip(D, None, 1e4)
+
+    def _eccentricity(self, bb: int, gaze_dir: torch.Tensor) -> torch.Tensor:
+        """(F, h, w) eccentricity of band ``bb``'s pixels: from the display's
+        view directions and the gaze's (F, 2), or, with a content mapping,
+        from the mapping and the gaze in pixels (F, 2)."""
+        if self.content_mapping is None:
+            vd = self._band_view_dir[bb]
+            return torch.sqrt((vd[0] - gaze_dir[:, 0, None, None]) ** 2
+                              + (vd[1] - gaze_dir[:, 1, None, None]) ** 2)
+        h, w = self.plan.level_shapes[bb]
+        xv = torch.linspace(0.5, w - 0.5, w, dtype=torch.float32, device=self.device)
+        yv = torch.linspace(0.5, h - 0.5, h, dtype=torch.float32, device=self.device)
+        yy, xx = torch.meshgrid(yv, xv, indexing="ij")
+        return self.content_mapping.eccentricity(
+            (w, h), xx, yy, gaze_dir[:, 0, None, None] + 0.5, gaze_dir[:, 1, None, None] + 0.5)
+
     def _score_frames_composed(self, R: torch.Tensor, temp_ch: int, fov_tables,
                                gaze_dir=None
                                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Materialised contrast scored in tensor operations, keeping the
-        per-pixel difference D of every level for the heatmap."""
+        """The per-pixel composition in tensor operations
+        (``fovvideovdp_tpu/core.py:451-668``), keeping the difference map D
+        of every level for the heatmap.  ``gaze_dir``: the (F, 2) gaze as
+        view directions, or in pixels with a content mapping."""
         p = self.params
         plan = self.plan
         F = R.shape[0]
@@ -401,22 +518,43 @@ class MetricCore:
         n_bands = plan.get_band_count()
         Q_rows = []
         heat_bands: List[torch.Tensor] = []
-        for bb, (band, L_bkg) in enumerate(plan.contrast_levels(R)):
+        for bb, (band, L_bkg, is_contrast) in enumerate(self._adapted_levels(R)):
             gain = plan.band_gain(bb, n_bands)
             band = band * gain
-            L = L_bkg[:, 0]
-            ecc = None
-            if gaze_dir is not None:
-                vd = self._band_view_dir[bb]
-                ecc = torch.sqrt((vd[0] - gaze_dir[:, 0, None, None]) ** 2
-                                 + (vd[1] - gaze_dir[:, 1, None, None]) ** 2)
+            h, w = band.shape[-2:]
+            ecc = None if gaze_dir is None else self._eccentricity(bb, gaze_dir)
+            if not is_contrast and not self.log_contrast:
+                # the reference's compute_local_contrast clamps L_bkg >= 0.1
+                # before the division; the CSF still sees the unclamped L_bkg
+                L_div = utils.clip(L_bkg, 0.1)
             Q_cc = []
             D_acc = None
             for cc in range(temp_ch):
-                S = self._sensitivity(bb, cc, L, fov_tables, ecc) * sens_corr
-                q = (p["mask_q_sust"], p["mask_q_trans"])[cc]
-                D = mask_ops.apply_masking_model(band[:, 2 * cc], band[:, 2 * cc + 1],
-                                                 1.0 / S, p["mask_p"], q, p["mask_c"])
+                T_f, R_f = band[:, 2 * cc], band[:, 2 * cc + 1]
+                if not is_contrast and not self.log_contrast:
+                    T_f = utils.clip(T_f / L_div, None, 1000.0)
+                    R_f = utils.clip(R_f / L_div, None, 1000.0)
+                S = self._sensitivity(bb, cc, L_bkg, fov_tables, ecc) * sens_corr
+                if self.log_contrast:
+                    # the log-contrast threshold (pyfvvdp/fvvdp.py:450,539-548)
+                    N_nCSF = torch.log10(1.0 + utils.clip(1.0 / S, None, 0.9999999))
+                else:
+                    N_nCSF = 1.0 / S
+                if self.band_callback is not None:
+                    # a debugging hook: this band's arrays go to the host
+                    self.band_callback(bb, plan.height, cc, T_f.detach().cpu(),
+                                       R_f.detach().cpu(), N_nCSF.detach().cpu())
+                D = self._apply_masking(T_f, R_f, N_nCSF, cc)
+                if self.ignore_boundary_pixels:
+                    # edge pixels see the padding (matlab/fvvdp_core.m:369-379)
+                    cy, cx = min(3, h), min(3, w)
+                    mask = torch.zeros((h, w), dtype=D.dtype, device=D.device)
+                    mask[cy:h - cy, cx:w - cx] = 1.0
+                    D = D * mask
+                if self.content_mapping is not None and ecc is not None:
+                    # nothing behind the viewer's head is visible
+                    # (matlab/fvvdp_core.m:387-391)
+                    D = torch.where(ecc > 105.0, torch.zeros_like(D), D)
                 ssum = torch.sum(torch.pow(torch.abs(D), p["beta"]), dim=(-2, -1))
                 Q_cc.append(self._q_from_sums(ssum[:, None], bb)[0])
                 if self.do_heatmap:

@@ -2,7 +2,8 @@
 non-foveated path, the per-pixel reductions of the fixed-gaze path and the
 per-frame trilinear lookup of the moving-gaze path.
 
-Counterpart of ``fovvideovdp_tpu/csf.py:35-386,444-500``.  A LUT is a dict
+Counterpart of ``fovvideovdp_tpu/csf.py:35-386,444-500``, with the JAX
+package's search order for a LUT (``CSFCache``).  A LUT is a dict
 of float32 tensors (``LUT_FIELDS``) plus ``"_uniform"``, the per-axis flags
 saying whether the grid is uniform in its transformed space.  The 1-D
 reductions run once per metric core, on the host, in numpy, with the same
@@ -18,7 +19,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fovvideovdp_tpu_torch import utils
+from fovvideovdp_tpu_torch import csf_generator, utils
 
 LUT_FIELDS = ("Y", "rho", "ecc", "Y_log", "rho_log", "ecc_sqrt", "S_log")
 
@@ -46,24 +47,49 @@ def lut_from_numpy(lut_np: Dict[str, np.ndarray], device) -> Dict:
 
 
 class CSFCache:
-    """Loads and holds CSF sensitivity LUTs from the packaged ``.npz`` files."""
+    """Loads and holds CSF sensitivity LUTs on ``device``.
 
-    def __init__(self, device):
+    Search order for a LUT, as the JAX package's
+    (``fovvideovdp_tpu/csf.py:40-96``): the packaged ``.npz`` files, then
+    user ``.mat`` caches in the reference's format under each of
+    ``extra_dirs`` (``<key>_gpu0.mat``, then ``<key>.mat``; default
+    ``["csf_cache"]``, relative to the working directory), then the
+    analytic generator (``csf_generator.precompute_lut``)."""
+
+    def __init__(self, device, extra_dirs: Optional[list] = None):
         self.device = torch.device(device)
+        self.extra_dirs = extra_dirs or ["csf_cache"]
         self._cache: Dict[str, Dict] = {}
 
     def get(self, omega: float, sigma: float, k_cm: float) -> Dict:
         key = cache_key(omega, sigma, k_cm)
         if key not in self._cache:
-            path = os.path.join(utils._DATA_DIR, f"csf_lut_{key}.npz")
-            if not os.path.isfile(path):
-                raise NotImplementedError(
-                    f"no shipped CSF LUT for key {key!r}; generating LUTs "
-                    "analytically is ROADMAP queue 1 item 4 (csf_generator)")
-            with np.load(path) as z:
-                lut_np = {k: z[k] for k in LUT_FIELDS}
+            lut_np = self._load_npz(key)
+            if lut_np is None:
+                lut_np = self._load_mat(key)
+            if lut_np is None:
+                lut_np = csf_generator.precompute_lut(omega, sigma, k_cm)
             self._cache[key] = lut_from_numpy(lut_np, self.device)
         return self._cache[key]
+
+    @staticmethod
+    def _load_npz(key: str):
+        path = os.path.join(utils._DATA_DIR, f"csf_lut_{key}.npz")
+        if not os.path.isfile(path):
+            return None
+        with np.load(path) as z:
+            return {k: z[k] for k in LUT_FIELDS}
+
+    def _load_mat(self, key: str):
+        for d in self.extra_dirs:
+            for suffix in ("_gpu0.mat", ".mat"):
+                lut = utils.load_mat_dict(os.path.join(d, key + suffix), "lut")
+                if lut is not None:
+                    return {k: np.asarray(lut[k], dtype=np.float32)
+                            if k == "S_log" else
+                            np.asarray(lut[k], dtype=np.float32).squeeze()
+                            for k in LUT_FIELDS}
+        return None
 
 
 def _grid_is_uniform(grid: np.ndarray, rtol: float = 1e-4) -> bool:
@@ -180,9 +206,14 @@ def _uniform_weights(q: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 def _monotone_cell(q: torch.Tensor, grid: torch.Tensor):
     """Cell search of the reference interpolants on a monotone grid
-    (searchsorted semantics, clamped ends, negative fractions zeroed)."""
+    (searchsorted semantics, clamped ends, negative fractions zeroed).  The
+    count of knots below q, as the JAX package counts them, comes from a
+    binary search instead of an (..., n) comparison; a NaN query counts 0
+    knots, as there."""
     n = grid.shape[0]
-    i_hi = torch.clamp(torch.sum(grid < q.unsqueeze(-1), dim=-1), max=n - 1)
+    below = torch.searchsorted(grid.contiguous(), q.contiguous())
+    below = torch.where(torch.isnan(q), torch.zeros_like(below), below)
+    i_hi = torch.clamp(below, max=n - 1)
     i_lo = torch.clamp(i_hi - 1, 0, n - 1)
     x_lo, x_hi = grid[i_lo], grid[i_hi]
     f = (q - x_lo) / (x_hi - x_lo + 1e-6)

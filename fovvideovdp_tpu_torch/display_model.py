@@ -21,18 +21,6 @@ from fovvideovdp_tpu_torch import utils
 # EOTFs
 # ---------------------------------------------------------------------------
 
-def _clip(V: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
-    """``torch.clamp(V, lo, hi)`` with the JAX package's gradient: where
-    autograd reads it, min(max(V, lo), hi), as ``jnp.clip`` computes it, so
-    that a value at a bound (input clipped to [0, 1] before scoring) passes
-    half of the gradient, not all of it.  The value is clamp's either way."""
-    if not (torch.is_grad_enabled() and V.requires_grad):
-        return torch.clamp(V, lo, hi)
-    if lo is not None:
-        V = torch.maximum(V, V.new_tensor(lo))
-    return V if hi is None else torch.minimum(V, V.new_tensor(hi))
-
-
 def srgb2lin(p: torch.Tensor) -> torch.Tensor:
     """sRGB display-encoded values (0..1) -> relative linear (0..1)."""
     return torch.where(p > 0.04045, ((p + 0.055) / 1.055) ** 2.4, p / 12.92)
@@ -46,8 +34,8 @@ _PQ = dict(Lmax=10000.0, n=0.15930175781250000, m=78.843750000000000,
 def pq2lin(V: torch.Tensor) -> torch.Tensor:
     """SMPTE ST 2084 (PQ) encoded values (0..1) -> absolute luminance (cd/m^2)."""
     k = _PQ
-    im_t = torch.pow(_clip(V, 0.0), 1.0 / k["m"])
-    return k["Lmax"] * torch.pow(_clip(im_t - k["c1"], 0.0)
+    im_t = torch.pow(utils.clip(V, 0.0), 1.0 / k["m"])
+    return k["Lmax"] * torch.pow(utils.clip(im_t - k["c1"], 0.0)
                                  / (k["c2"] - k["c3"] * im_t), 1.0 / k["n"])
 
 
@@ -116,16 +104,16 @@ class fvvdp_display_photo_eotf(fvvdp_display_photometry):
 
     def forward(self, V):
         if self.EOTF != "linear":
-            V = _clip(V, 0.0, 1.0)
+            V = utils.clip(V, 0.0, 1.0)
         Y_black = self.get_black_level()
         if self.EOTF == "sRGB":
             return (self.Y_peak - Y_black) * srgb2lin(V) + Y_black
         if self.EOTF == "gamma":
             return (self.Y_peak - Y_black) * torch.pow(V, self.gamma) + Y_black
         if self.EOTF == "PQ":
-            return _clip(pq2lin(V), 0.005, self.Y_peak) + Y_black
+            return utils.clip(pq2lin(V), 0.005, self.Y_peak) + Y_black
         if self.EOTF == "linear":
-            return _clip(V, 0.005, self.Y_peak) + Y_black
+            return utils.clip(V, 0.005, self.Y_peak) + Y_black
         raise RuntimeError(f"Unknown EOTF '{self.EOTF}'")
 
     def get_peak_luminance(self):
@@ -155,7 +143,7 @@ class fvvdp_display_photo_absolute(fvvdp_display_photometry):
         self.L_min = L_min
 
     def forward(self, V):
-        return _clip(V, self.L_min, self.L_max)
+        return utils.clip(V, self.L_min, self.L_max)
 
     def get_peak_luminance(self):
         return self.L_max
@@ -181,7 +169,7 @@ class fvvdp_display_photo_gog(fvvdp_display_photometry):
         self.name = name
 
     def forward(self, V):
-        V = _clip(V, 0.0, 1.0)
+        V = utils.clip(V, 0.0, 1.0)
         Y_black = self.get_black_level()
         if self.gamma == -1:
             return (self.Y_peak - Y_black) * srgb2lin(V) + Y_black

@@ -6,8 +6,12 @@ streaming loop, the ``do_temporal_channels=False`` ablation, foveation with
 a fixed or a per-frame gaze, heatmaps on the host or the device),
 ``predict_batch`` on one card (``:953-1163``), the differentiable
 ``predict_traced`` and ``loss`` (``:1165-1242``), ``do_pooling_and_jods`` and
-``write_features_to_json`` (``:1283-1295``).  The default device is the
-CUDA card; ``device="cpu"`` runs every kernel's plain version instead.
+``write_features_to_json`` (``:1283-1295``), with the MATLAB core's
+ablations and options (``local_adapt``, ``contrast="log"``, the masking
+ablations, ``pu_dilate``, ``ignore_boundary_pixels``, ``band_callback``,
+``content_mapping``) wherever the JAX package takes them.  The default
+device is the CUDA card; ``device="cpu"`` runs every kernel's plain version
+instead.
 
 Frames are scored in blocks: each block's temporal window is the fl-1
 carried frames plus the new block, and ``Q_per_ch`` stays on the device
@@ -43,20 +47,29 @@ from fovvideovdp_tpu_torch.video_source import (PairBatch, channels_to_luminance
                                                 resolve_device, rgb_to_y)
 
 # Device bytes a block of B frames at H x W keeps live, per pixel-frame, by
-# the route the core takes (core.MetricCore.route).  "fused": the
-# (B, 4, H, W) float32 temporal responses (16 B), their Gaussian pyramid
-# (~5.3 B), the luminance pair and the decode temporaries.  "banded" adds
-# one level's materialised contrast and L_bkg (20 B at level 0); "composed"
-# (heatmaps) adds the temporaries of the per-pixel composition, every
-# level's difference map, the reconstruction and the rendered frames.
-# "moving" (a gaze per frame through mov_score) holds what "banded" holds,
-# without resident tables; a gaze per frame on the composed route adds one
-# level's eccentricity maps and frame-sized temporaries to "composed", which
-# its figure covers (measured 116.4 B).
+# the route the core takes (core.MetricCore.route, and _memory_route).
+# "fused": the (B, 4, H, W) float32 temporal responses (16 B), their
+# Gaussian pyramid (~5.3 B), the luminance pair and the decode temporaries.
+# "banded" adds one level's materialised contrast and L_bkg (20 B at level
+# 0); "composed" (heatmaps) adds the temporaries of the per-pixel
+# composition, every level's difference map, the reconstruction and the
+# rendered frames; "unfused" (the composition without a heatmap: the
+# options, a non-uniform Y grid) adds one level's band, L_bkg and the
+# composition's temporaries, and under "simple" the blurred plane beside
+# them.  "moving" (a gaze per frame through mov_score) holds what "banded"
+# holds, without resident tables; a gaze per frame on the composed route
+# adds one level's eccentricity maps and frame-sized temporaries to
+# "composed", which its figure covers (measured 116.4 B).
 # chip_smoke.py measures the peaks on the card at 4K (PERF.md, where the
-# time goes): 38.1, 64.8 and 118.9 B, and for "moving" 59.8 B above what was
-# on the card before the call; the figures here are those rounded up.
-_BLOCK_BYTES_PER_PX_FRAME = {"fused": 40, "banded": 68, "composed": 128, "moving": 68}
+# time goes): 38.1, 64.8 and 118.9 B, for "moving" 59.8 B above what was on
+# the card before the call, and for "unfused" 115.0-118.9 B (phase 8d's 4K
+# configurations) with at most 122.6 B per pixel-frame of a block
+# ("simple", the peak's slope between blocks of 8 and 4 frames at 960x540);
+# the figures here are those rounded up.  A gaze per frame on the composed
+# route adds the trilinear CSF's passes, which csf._TRILINEAR_CHUNK caps at
+# ~0.7 GB whatever the block.
+_BLOCK_BYTES_PER_PX_FRAME = {"fused": 40, "banded": 68, "composed": 128, "moving": 68,
+                             "unfused": 128}
 # share of the free device memory a block may take
 _BLOCK_MEM_SHARE = 0.5
 # Past this, a longer block only holds more memory: the fl-1 carried frames
@@ -76,13 +89,19 @@ _IMAGE_STACK_BYTES = 8
 
 HEATMAP_TYPES = ("raw", "threshold", "supra-threshold", "monochromatic")
 
-_DEFAULTS = dict(local_adapt="gpyr", contrast="weber",
-                 masking_model="min_mutual_masking_perc_norm2", pu_dilate=0.0)
-
 
 def _unsupported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported to fovvideovdp_tpu_torch "
                                f"yet ({item} of ROADMAP.md)")
+
+
+def _memory_route(core: MetricCore, moving: bool) -> str:
+    """The key of ``_BLOCK_BYTES_PER_PX_FRAME`` for a block scored by
+    ``core``, with a gaze per frame (``moving``) or not."""
+    route = core.moving_route if moving else core.route
+    if moving and route == "banded":
+        return "moving"
+    return "unfused" if route == "composed" and not core.do_heatmap else route
 
 
 class fvvdp:
@@ -110,12 +129,6 @@ class fvvdp:
             # sense for the display-referred colour-mapped outputs
             raise ValueError("heatmap_dtype='uint8' requires a colormapped "
                              "heatmap type, not 'raw'")
-        if ignore_boundary_pixels:
-            raise _unsupported("ignore_boundary_pixels", "queue 1 item 3")
-        if band_callback is not None:
-            raise _unsupported("band_callback", "queue 1 item 3")
-        if content_mapping is not None:
-            raise _unsupported("content_mapping", "queue 1 item 3")
 
         self.device = resolve_device(device)
         self.quiet = quiet
@@ -135,7 +148,16 @@ class fvvdp:
         # (the MATLAB core's ablation); predict_batch does not read it, as
         # in the JAX package
         self.do_temporal_channels = bool(do_temporal_channels)
-        self.content_mapping = content_mapping      # None: refused above
+        # research and ablation options of the MATLAB core
+        # (matlab/fvvdp_core.m:60-77): each sends the core to the composed
+        # route, as in the JAX package
+        self.ignore_boundary_pixels = bool(ignore_boundary_pixels)
+        # called as band_callback(band, n_bands, channel, T, R, N_nCSF) with
+        # CPU tensors, once per band and temporal channel of each block
+        self.band_callback = band_callback
+        # e.g. content_mapping.fvvdp_content_mapping_equirect; read only when
+        # foveated, where a fixation point then becomes a gaze per frame
+        self.content_mapping = content_mapping
         # predict_traced recomputes the spatial scoring in the backward
         # instead of keeping its graph (torch.utils.checkpoint)
         self.use_checkpoints = bool(use_checkpoints)
@@ -143,7 +165,7 @@ class fvvdp:
         self.set_display_model(display_name, display_photometry=display_photometry,
                                display_geometry=display_geometry)
         self.load_config(parameter_overrides)
-        self.csf_cache = CSFCache(self.device)
+        self.csf_cache = CSFCache(self.device)   # .npz, then .mat caches, then generated
         self.omega = (0.0, 5.0)
         self._luts = tuple(self.csf_cache.get(o, self.csf_sigma, self.k_cm)
                            for o in self.omega)
@@ -162,9 +184,6 @@ class fvvdp:
         self._set_parameters(parameters)
 
     def _set_parameters(self, parameters: Dict):
-        for key, default in _DEFAULTS.items():
-            if parameters.get(key, default) != default:
-                raise _unsupported(f"{key}={parameters[key]!r}", "queue 1 item 3")
         self.parameters = parameters
         for key in ("mask_p", "mask_c", "pu_dilate", "w_transient", "beta", "beta_t",
                     "beta_tch", "beta_sch", "sustained_sigma", "sustained_beta",
@@ -224,7 +243,10 @@ class fvvdp:
             self._cores[key] = MetricCore(
                 plan, self.parameters, self._luts, self.device, peak_luminance=peak,
                 geometry=self.display_geometry, foveated=self.foveated,
-                heatmap=heatmap, heatmap_dtype=self.heatmap_dtype)
+                heatmap=heatmap, heatmap_dtype=self.heatmap_dtype,
+                content_mapping=self.content_mapping,
+                ignore_boundary_pixels=self.ignore_boundary_pixels,
+                band_callback=self.band_callback)
         return self._cores[key]
 
     def _free_device_bytes(self):
@@ -328,14 +350,17 @@ class fvvdp:
         fov_tables = None
         gaze = None                  # (N_frames, 2) tensor: the moving route
         core = self._get_core(width, height)
-        route = core.route
+        if self.foveated and fixation_point.shape == (2,) \
+                and self.content_mapping is not None:
+            # the mapping's eccentricity depends on the gaze: no tables are
+            # built, the point is a gaze per frame (fovvideovdp_tpu/fvvdp.py:298-303)
+            fixation_point = np.broadcast_to(fixation_point, (N_frames, 2))
         if self.foveated:
             if fixation_point.ndim == 2 and fixation_point.shape[1] == 2:
                 # this route reads no fixed-gaze tables; an earlier call may
                 # have left GB of them on the card
                 core.drop_fov_tables()
-                gaze = torch.as_tensor(fixation_point[:N_frames], device=self.device)
-                route = "moving" if core.moving_route == "banded" else "composed"
+                gaze = torch.as_tensor(np.array(fixation_point[:N_frames]), device=self.device)
             elif fixation_point.shape == (2,):
                 fov_tables = core.fov_tables((float(fixation_point[0]),
                                               float(fixation_point[1])))
@@ -343,6 +368,7 @@ class fvvdp:
                 raise ValueError(
                     f"fixation_point must be one (x, y) point or an (N, 2) array of "
                     f"per-frame points, got shape {fixation_point.shape}")
+        route = _memory_route(core, gaze is not None)
         plan = core.plan
         if self.do_heatmap and self.device_heatmap:
             self._check_device_heatmap_budget(N_frames, height, width)
@@ -353,8 +379,9 @@ class fvvdp:
                 heat_blocks.append(heat if self.device_heatmap else heat.cpu().numpy())
 
         def on_device(pair):
-            # a per-frame source may give its frames on another device
-            return tuple(x.to(self.device, torch.float32) for x in pair)
+            # a per-frame source may give its frames on another device; log
+            # contrast scores log10 luminance
+            return tuple(self._encode(x.to(self.device, torch.float32)) for x in pair)
 
         def block(start, count):
             return on_device(vid_source.get_luminance_block(start, count))
@@ -405,6 +432,12 @@ class fvvdp:
                     1, 0, 2, 3)[None]
         return float(Q_jod), stats
 
+    def _encode(self, lum: torch.Tensor) -> torch.Tensor:
+        """Luminance as the core scores it: log10 of it, clipped at 1e-6,
+        under log contrast (``fovvideovdp_tpu/fvvdp.py:338-342``); else as
+        it is."""
+        return torch.log10(utils.clip(lum, 1e-6)) if self.contrast == "log" else lum
+
     # ------------------------------------------------------------------
     # batches of independent pairs
     # ------------------------------------------------------------------
@@ -449,11 +482,12 @@ class fvvdp:
         if "B" not in dim_order.upper():
             raise RuntimeError("predict_batch needs a batch axis; include 'B' in dim_order")
         pairs = PairBatch(test_conts, reference_conts, dim_order, frames_per_second,
-                          self.display_photometry, rgb_to_y(self.color_space), self.device)
+                          self.display_photometry, rgb_to_y(self.color_space), self.device,
+                          encode=self._encode)
         N, _, F, H, W = pairs.shape
 
         core = self._get_core(W, H, with_heatmap=False)
-        route = core.route
+        route = _memory_route(core, gaze_mode == "per_pair")
         fov_tables = gaze = None
         if gaze_mode == "tables":
             if fixation_point is None:
@@ -466,7 +500,6 @@ class fvvdp:
             gaze_b = np.broadcast_to(fp[:, None, :] if fp.ndim == 2 else fp, (N, F, 2))
             core.drop_fov_tables()
             gaze = torch.as_tensor(np.array(gaze_b, dtype=np.float32), device=self.device)
-            route = "moving" if core.moving_route == "banded" else "composed"
         stats = {"width": W, "height": H, "N_frames": F, "N_pairs": N,
                  "frames_per_second": frames_per_second}
         if F == 1:
@@ -533,7 +566,7 @@ class fvvdp:
                                              rgb2y)
             return self.display_photometry.forward(x[0, 0])
 
-        lum_t, lum_r = to_lum(x_t), to_lum(x_r)
+        lum_t, lum_r = self._encode(to_lum(x_t)), self._encode(to_lum(x_r))
         core = self._get_core(W, H)
         gaze = None
         if self.foveated:

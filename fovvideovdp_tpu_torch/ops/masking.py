@@ -1,23 +1,40 @@
 """Visual masking model and norm pooling.
 
 Counterpart of ``fovvideovdp_tpu/ops/masking.py:13-70``: the calibrated
-'min_mutual_masking_perc_norm2' model (without the ``pu_dilate`` blur) and
-the band -> channel -> frame pooling to JOD, of one clip or of each pair
-of a batch.
+'min_mutual_masking_perc_norm2' model (with the ``pu_dilate`` blur of the
+mutual-masking signal), ``weber2log`` and the band -> channel -> frame
+pooling to JOD, of one clip or of each pair of a batch.
 """
 from __future__ import annotations
 
 import torch
 
+from fovvideovdp_tpu_torch import utils
 
-def apply_masking_model(T, R, N_nCSF, p: float, q: float, mask_c: float):
+
+def apply_masking_model(T, R, N_nCSF, p: float, q: float, mask_c: float,
+                        pu_dilate: float = 0.0):
     """Masked visual difference D for one band/channel:
-    D = |T/N - R/N|^p / (1 + (10^mask_c * min(|T/N|, |R/N|))^q), clamped to 1e4."""
+    D = |T/N - R/N|^p / (1 + M_pu^q), clamped to 1e4, where
+    M_pu = 10^mask_c * min(|T/N|, |R/N|) when ``pu_dilate`` is 0 and
+    10^mask_c times its Gaussian blur of sigma ``pu_dilate`` (replicate
+    padding, as MATLAB's imgaussfilt: matlab/fvvdp_core.m:546-552)
+    otherwise."""
     T = T / N_nCSF
     R = R / N_nCSF
-    M_pu = (10.0 ** mask_c) * torch.minimum(torch.abs(T), torch.abs(R))
+    M = torch.minimum(torch.abs(T), torch.abs(R))
+    if pu_dilate != 0.0:
+        # each leading slice of M (..., h, w) blurred as one batch
+        M = utils.ImGaussFilt(pu_dilate, pad_mode="edge").run(
+            M.reshape((-1, 1) + M.shape[-2:])).reshape(M.shape)
+    M_pu = (10.0 ** mask_c) * M
     D = torch.pow(torch.abs(T - R), p) / (1.0 + torch.pow(M_pu, q))
     return torch.clamp(D, max=1e4)
+
+
+def weber2log(W):
+    """Weber contrast (B - A) / A -> log contrast log10(B / A)."""
+    return torch.log10(1.0 + W)
 
 
 def lp_norm(x, p: float, dim=0, normalize: bool = True, keepdim: bool = True):

@@ -11,7 +11,10 @@ ported yet (ROADMAP queue 1 item 7).
 
 Both read their pairs from a :class:`video_source.PairBatch` (or any object
 with its ``shape`` and ``luminance(start, count, frames=None)``) a chunk at
-a time; the caller sizes the chunks from the card's free memory.
+a time, log10-encoded under log contrast; the caller sizes
+the chunks from the card's free memory.  Each scores through
+``MetricCore.score_frames``, so a batch takes whatever route the core's
+options give it.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@
 host data (``{k: np.asarray(lut[k]) for k in csf.LUT_FIELDS}`` for each of
 ``fovvideovdp_tpu.fvvdp(...)._luts``) and returns them in this package's
 form; ``fvvdp.load_state`` installs them, so both packages score from
-identical state.
+identical state: ablation settings among the parameters, and LUTs the JAX
+package generated or read from a ``.mat`` cache, on whatever grid (the
+uniform-grid flags are computed from the arrays).
 """
 from __future__ import annotations
 

@@ -552,9 +552,12 @@ class PairBatch:
     (:meth:`fvvdp_video_source_array.preload_limit`); else it stays on the
     host and each chunk goes up when it is asked for, through the staged
     pinned copy.  A batch on the card is read where it is.  The checks and
-    their words are ``fvvdp.predict_batch``'s in the JAX package."""
+    their words are ``fvvdp.predict_batch``'s in the JAX package.
+    ``encode``, where given, maps each chunk's luminance to what the metric
+    scores (log10 luminance under log contrast)."""
 
-    def __init__(self, test, reference, dim_order: str, fps, dm, rgb2y, device):
+    def __init__(self, test, reference, dim_order: str, fps, dm, rgb2y, device,
+                 encode=None):
         t, r = _as_stored(test), _as_stored(reference)
         dims = dim_order.upper()
         shape = tuple(reshuffle_dims(t, dims, "BCFHW").shape)
@@ -572,6 +575,7 @@ class PairBatch:
             # "cuda" is the current card, the device its tensors report
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._dm, self._rgb2y = dm, rgb2y
+        self._encode = encode or (lambda L: L)
         self._dims = dims
         if t.device.type == "cpu" and \
                 2 * t.numel() * t.element_size() <= fvvdp_video_source_array.preload_limit(
@@ -603,6 +607,6 @@ class PairBatch:
         start..start+count-1 on the device: all F frames, or those at
         ``frames`` (a slice, or an index array for the temporal padding)."""
         return tuple(
-            _luminance_cfirst(self._raw(x, start, count, frames).transpose(0, 1), self._dm,
-                              self._rgb2y)
+            self._encode(_luminance_cfirst(self._raw(x, start, count, frames).transpose(0, 1),
+                                           self._dm, self._rgb2y))
             for x in (self._t, self._r))

@@ -175,27 +175,33 @@ def test_missing_inputs_and_bad_heatmap(image_pair):
                            "--device", "cpu"]) == 1
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(do_temporal_channels=False), None), (dict(ignore_boundary_pixels=True), "item 3"),
-    (dict(band_callback=print), "item 3"), (dict(content_mapping=object()), "item 3"),
-    (dict(parameter_overrides={"contrast": "log"}), "item 3"),
-    (dict(parameter_overrides={"csf_sigma": -2.0}), "item 4"),
+@pytest.mark.parametrize("kwargs", [
+    dict(do_temporal_channels=False), dict(ignore_boundary_pixels=True),
+    dict(band_callback=lambda *a: None), dict(content_mapping="equirect"),
+    dict(parameter_overrides={"contrast": "log"}),
+    dict(parameter_overrides={"csf_sigma": -2.0}),
 ], ids=["temporal", "boundary", "callback", "content", "contrast", "csf"])
-def test_unported_options_name_their_current_item(kwargs, item):
-    """Each option the port lacks names its ROADMAP item; a ported one
-    (item None) scores as the JAX package does."""
-    if item is None:
-        rng = np.random.RandomState(11)
-        ref = (rng.rand(24, 40, 3, 4) * 255).astype(np.uint8)
-        tst = np.clip(ref.astype(np.int16) + rng.randint(-20, 20, ref.shape),
-                      0, 255).astype(np.uint8)
-        call = dict(dim_order="HWCF", frames_per_second=30)
-        Q_p, s_p = port_fvvdp(device="cpu", **kwargs).predict(tst, ref, **call)
-        Q_j, _ = fv_jax.fvvdp(**kwargs).predict(tst, ref, **call)
-        assert abs(Q_p - Q_j) <= 1e-4 and np.all(s_p["Q_per_ch"][:, 1] == 0)
-        return
-    with pytest.raises(NotImplementedError, match=item + r"\b"):
-        port_fvvdp(device="cpu", **kwargs)
+def test_unported_options_name_their_current_item(kwargs):
+    """Options the port once lacked (each raised naming its ROADMAP item,
+    3 or 4) score as the JAX package does: every case is ported now.
+    "equirect" stands for each package's content mapping."""
+    rng = np.random.RandomState(11)
+    ref = (rng.rand(24, 40, 3, 4) * 255).astype(np.uint8)
+    tst = np.clip(ref.astype(np.int16) + rng.randint(-20, 20, ref.shape),
+                  0, 255).astype(np.uint8)
+    call = dict(dim_order="HWCF", frames_per_second=30)
+    j_kw, p_kw = dict(kwargs), dict(kwargs)
+    if kwargs.get("content_mapping") == "equirect":
+        from fovvideovdp_tpu.content_mapping import fvvdp_content_mapping_equirect as jax_cm
+        from fovvideovdp_tpu_torch.content_mapping import fvvdp_content_mapping_equirect
+        j_kw["content_mapping"], p_kw["content_mapping"] = (
+            jax_cm(40, 24), fvvdp_content_mapping_equirect(40, 24))
+    Q_p, s_p = port_fvvdp(device="cpu", **p_kw).predict(tst, ref, **call)
+    Q_j, s_j = fv_jax.fvvdp(**j_kw).predict(tst, ref, **call)
+    assert abs(Q_p - Q_j) <= 1e-4
+    np.testing.assert_allclose(s_p["Q_per_ch"], np.asarray(s_j["Q_per_ch"]), **GOLDEN_BAR)
+    if "do_temporal_channels" in kwargs:
+        assert np.all(s_p["Q_per_ch"][:, 1] == 0)
 
 
 def test_unported_call_options_name_their_current_item(image_pair):

@@ -2,8 +2,10 @@
 it refuses, and (on a CUDA card only) each hand-written kernel against its
 plain PyTorch version.
 
-The CPU tests need no JAX but one, which holds the ``do_temporal_channels``
-ablation to the JAX package.  The ``gpu`` tests skip without a card; on the
+The CPU tests need no JAX but two, which hold the options (the
+``do_temporal_channels`` ablation, the ablations and options of the MATLAB
+core, generated and non-uniform LUTs) to the JAX package and import it
+inside the test.  The ``gpu`` tests skip without a card; on the
 card run them without the repo's JAX-pinning conftest:
 ``python -m pytest --noconftest -m gpu tests/test_torch_package.py``.
 """
@@ -96,11 +98,14 @@ def test_data_copies_match_the_jax_package(fname):
                        os.path.join(JAX_PKG, "data", fname), shallow=False)
 
 
+_MAPPING = "equirect"   # stands for each package's equirect content mapping
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(do_temporal_channels=False),
-    dict(ignore_boundary_pixels=True), dict(band_callback=print),
-    dict(content_mapping=object()),
-    dict(foveated=True, content_mapping=object()),
+    dict(ignore_boundary_pixels=True), dict(band_callback=lambda *a: None),
+    dict(content_mapping=_MAPPING),
+    dict(foveated=True, content_mapping=_MAPPING),
     dict(heatmap="raw", ignore_boundary_pixels=True),
     dict(parameter_overrides={"local_adapt": "simple"}),
     dict(parameter_overrides={"local_adapt": "global"}),
@@ -109,22 +114,33 @@ def test_data_copies_match_the_jax_package(fname):
     dict(parameter_overrides={"masking_model": "contrast_difference"}),
     dict(parameter_overrides={"masking_model": "contrast_difference_perc_norm"}),
     dict(parameter_overrides={"pu_dilate": 1.0}),
-    dict(parameter_overrides={"csf_sigma": -2.0}),   # no shipped LUT
+    dict(parameter_overrides={"csf_sigma": -2.0}),   # no shipped LUT: generated
 ], ids=lambda kw: "-".join(f"{k}" for k in kw) + "-" + "-".join(
     f"{k}" for k in (kw.get("parameter_overrides") or {})))
 def test_unsupported_options_raise(kwargs):
-    """Each option the port lacks raises and names its ROADMAP item; the
-    ported ``do_temporal_channels=False`` scores as the JAX package does."""
-    if kwargs == dict(do_temporal_channels=False):
-        import fovvideovdp_tpu as fv_jax        # the one case that needs JAX
-        test, ref = _tiny_video(shape=(40, 56, 3, 6))
-        call = dict(dim_order="HWCF", frames_per_second=30)
-        Q_p, s_p = fvvdp(device="cpu", **kwargs).predict(test, ref, **call)
-        Q_j, _ = fv_jax.fvvdp(**kwargs).predict(test, ref, **call)
-        assert abs(Q_p - Q_j) <= 1e-4 and np.all(s_p["Q_per_ch"][:, 1] == 0)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fvvdp(device="cpu", **kwargs)
+    """The options ROADMAP queue 1 items 3 and 4 listed as missing, each of
+    which once raised here, now score as the JAX package scores them (the
+    ablation of do_temporal_channels since PR 9): |dJOD| <= 1e-4 and
+    Q_per_ch at rtol 2e-3 / atol 2e-4, the heatmap at 2e-3."""
+    import fovvideovdp_tpu as fv_jax        # the comparison needs JAX
+    from fovvideovdp_tpu.content_mapping import fvvdp_content_mapping_equirect as jax_cm
+    from fovvideovdp_tpu_torch.content_mapping import fvvdp_content_mapping_equirect
+    test, ref = _tiny_video(shape=(40, 56, 3, 6))
+    call = dict(dim_order="HWCF", frames_per_second=30)
+    j_kw, p_kw = dict(kwargs), dict(kwargs)
+    if kwargs.get("content_mapping") == _MAPPING:
+        j_kw["content_mapping"] = jax_cm(56, 40)
+        p_kw["content_mapping"] = fvvdp_content_mapping_equirect(56, 40)
+    Q_p, s_p = fvvdp(device="cpu", **p_kw).predict(test, ref, **call)
+    Q_j, s_j = fv_jax.fvvdp(**j_kw).predict(test, ref, **call)
+    assert abs(Q_p - Q_j) <= 1e-4
+    np.testing.assert_allclose(s_p["Q_per_ch"], np.asarray(s_j["Q_per_ch"]),
+                               rtol=2e-3, atol=2e-4)
+    if "do_temporal_channels" in kwargs:
+        assert np.all(s_p["Q_per_ch"][:, 1] == 0)
+    if "heatmap" in kwargs:
+        np.testing.assert_allclose(s_p["heatmap"].astype(np.float32),
+                                   np.asarray(s_j["heatmap"], np.float32), atol=2e-3)
 
 
 @pytest.mark.parametrize("kwargs,error", [
@@ -158,16 +174,26 @@ def test_unsupported_call_options_raise():
 
 @pytest.mark.parametrize("broken", ["non_uniform_Y", "unshared_Y"])
 def test_luts_the_fused_scorer_cannot_take_raise(broken):
-    """A non-uniform Y grid is refused; LUTs on different Y grids leave the
-    fused scorer for the per-channel one (and score)."""
+    """A Y grid flagged non-uniform leaves the kernels for the composed
+    route and scores as the JAX package scores the same LUTs (it once
+    raised here); LUTs on different Y grids leave the fused scorer for the
+    per-channel one (and score)."""
     fv = fvvdp(device="cpu")
     luts = [dict(l) for l in fv._luts]
     if broken == "non_uniform_Y":
+        import fovvideovdp_tpu as fv_jax     # the comparison needs JAX
         for l in luts:
             l["_uniform"] = dict(l["_uniform"], Y_log=False)
         fv.load_state(fv.parameters, luts)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fv._get_core(64, 48)
+        assert fv._get_core(56, 40).route == "composed"
+        jm = fv_jax.fvvdp()
+        jm._luts = tuple(dict(l, _uniform=dict(l["_uniform"], Y_log=False)) for l in jm._luts)
+        test, ref = _tiny_video()
+        call = dict(dim_order="HWCF", frames_per_second=30)
+        (q, s), (q_j, s_j) = fv.predict(test, ref, **call), jm.predict(test, ref, **call)
+        assert abs(q - q_j) <= 1e-4
+        np.testing.assert_allclose(s["Q_per_ch"], np.asarray(s_j["Q_per_ch"]),
+                                   rtol=2e-3, atol=2e-4)
         return
     luts[1]["Y_log"] = luts[1]["Y_log"] + 0.5
     fv.load_state(fv.parameters, luts)
