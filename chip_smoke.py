@@ -118,6 +118,24 @@ Phases, each raising on failure:
      the card against device="cpu" (|dJOD| <= 1e-4, 1e-3 foveated), with the
      card's peak bytes per pixel-frame; predict_batch and predict_traced
      under log contrast likewise;
+  8e. checkpoint_resume_video (the 4K clip uninterrupted; crashed by its
+     source on the fetch after block 0 with a checkpoint after every block;
+     resumed: JOD and Q_per_ch bit for bit, no block before the checkpoint
+     fetched, reduce, temporal and expand_score2 launched for the remaining
+     block only, the file removed; the file's bytes, the save's and the
+     load's seconds) and checkpoint_walls (a copy of the file resumed in
+     blocks of 16 within rtol 1e-5; warm wall time with a checkpoint after
+     every block beside none, in turns); pu_psnr_video (PU21-PSNR of the 4K
+     clip on the card against device="cpu" within 1e-3 dB, warm seconds
+     and fps, no kernel launched); core_key_sequence (at 1080p: a metric
+     whose heatmap dtype, boundary pixels and foveation change between
+     calls scores each step as a metric built fresh for it, within 1e-6
+     JOD, its heatmap's dtype the same; a replaced core's fixed-gaze
+     tables leave the card); update_device (a metric built on the CPU
+     moved to the card scores a 1080p clip as a card metric does, within
+     1e-6, on the default route); cli_extras (run_fvvdp.main in-process on
+     4d's .yuv pair with --metrics fvvdp pu-psnr --checkpoint: both lines,
+     the JOD 4d's to 4 decimals, no checkpoint file left);
   9. the kernels line, then the result line.
 
 Every path has its own expectation of which kernels must launch and which
@@ -158,10 +176,16 @@ result line;
     python3 chip_smoke.py --options
 
 runs phases 1, 2 and 8d only (the ablations and options), and prints no
-result line.
+result line;
+
+    python3 chip_smoke.py --extras
+
+runs phases 1, 2 and 8e only (checkpoint and resume, PU21-PSNR, the cores'
+key, update_device, the CLI's extras), and prints no result line.
 """
 import contextlib
 import functools
+import gc
 import importlib
 import io
 import json
@@ -1298,6 +1322,7 @@ def file_source_phases(fv, test_v, ref_v, dev):
               wall_s_cpu=res["cpu"][1], launches=res[str(dev)][2]))
     if not abs(res[str(dev)][0] - res["cpu"][0]) <= 1e-4:
         raise AssertionError(f"packed array: card {res[str(dev)][0]} vs CPU {res['cpu'][0]}")
+    return q_yuv if n == N_FRAMES else None
 
 
 # ---------------------------------------------------------------------------
@@ -2218,6 +2243,292 @@ def options_phase(dev, smi, test_v, ref_v):
     torch.cuda.empty_cache()
     return launches
 
+# ---------------------------------------------------------------------------
+# 8e. checkpoint and resume of the streaming loop, PU21-PSNR, the cores' key,
+# update_device and the CLI's extras
+# ---------------------------------------------------------------------------
+
+EXTRA_H, EXTRA_W = 1080, 1920     # the cores' key and update_device
+MAIN_KERNELS = ("gausspyr_reduce", "temporal_pair", "expand_score2")
+
+
+class BlockLog(fvt.fvvdp_video_source_array):
+    """The array source, logging the luminance blocks it serves and raising
+    on the call after the ``limit``-th: a crash mid-video."""
+
+    def __init__(self, *a, limit=None, **kw):
+        super().__init__(*a, **kw)
+        self.limit, self.calls, self.blocks = limit, 0, []
+
+    def get_luminance_block(self, start, count):
+        self.calls += 1
+        if self.limit is not None and self.calls > self.limit:
+            raise RuntimeError("simulated crash")
+        self.blocks.append((int(start), int(count)))
+        return super().get_luminance_block(start, count)
+
+
+def check_resume_launches(counts, n_blocks, n_levels):
+    """The resumed run scores its remaining blocks on the default route and
+    nothing else."""
+    want = dict(gausspyr_reduce=n_levels * n_blocks, temporal_pair=n_blocks,
+                expand_score2=n_levels * n_blocks)
+    if any(v != want.get(k, 0) for k, v in counts.items()):
+        raise AssertionError(f"resumed run: launches {counts}, expected {want}")
+
+
+def timed_checkpoint_io(fv, seconds):
+    """Wrap the metric's checkpoint save and load: each call's seconds (the
+    save's include the copy of Q_per_ch and the carry off the card)."""
+    for name in ("_save_checkpoint", "_load_checkpoint"):
+        real = getattr(fv, name)
+
+        def timed(*a, _real=real, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*a)
+            seconds.setdefault(_name, []).append(time.perf_counter() - t0)
+            return out
+        setattr(fv, name, timed)
+
+
+def checkpoint_phase(dev, smi, test_v, ref_v):
+    """The 4K clip uninterrupted, then crashed after its first block with a
+    checkpoint after every block, then resumed (bit for bit, only the
+    remaining block fetched and scored), then resumed from a copy of the
+    same file in blocks of 16 (rtol 1e-5); the file's bytes, the save's and
+    the load's seconds, and the warm wall time with a checkpoint after every
+    block beside the time without one.  Returns each run's launches."""
+    fv = fvt.fvvdp(display_name="standard_4k")
+
+    def source(limit=None):
+        return BlockLog(test_v, ref_v, FPS, dim_order="HWCF",
+                        display_photometry=fv.display_photometry, device=dev, limit=limit)
+    launches = {}
+    (q_full, s_full), launches["checkpoint_uninterrupted"] = counted(
+        lambda: fv.predict_video_source(source()))
+    if not abs(q_full - GOLDEN_SYNTH_Q) <= JOD_TOL:
+        raise AssertionError(f"checkpoint phase: 4K clip JOD {q_full}")
+    B = fv._pick_block_size(H, W, N_FRAMES)
+    if B >= N_FRAMES:
+        raise AssertionError(f"the 4K clip fits one block of {B}: nothing to resume")
+    n_levels = s_full["Q_per_ch"].shape[0]
+    io_s = {}
+    timed_checkpoint_io(fv, io_s)
+    with tempfile.TemporaryDirectory(prefix="fvvdp_ckpt_") as tmp:
+        ckpt = os.path.join(tmp, "clip.ckpt")
+        crashing = source(limit=2)     # the probe, block 0, then the crash
+        cuda_ops.reset_launch_counts()
+        try:
+            fv.predict_video_source(crashing, checkpoint_path=ckpt, checkpoint_every=1)
+            raise AssertionError("the crashing source did not crash")
+        except RuntimeError as e:
+            if "simulated crash" not in str(e):
+                raise
+        launches["checkpoint_crash"] = cuda_ops.launch_counts()
+        if not os.path.isfile(ckpt):
+            raise AssertionError("the crash left no checkpoint")
+        ckpt_bytes = os.path.getsize(ckpt)
+        shutil.copyfile(ckpt, ckpt + ".copy")
+        with np.load(ckpt) as d:
+            pos = int(d["pos"])
+        remaining = list(range(pos, N_FRAMES, B))
+        resumed = source()
+        (q_res, s_res), counts = counted(
+            lambda: fv.predict_video_source(resumed, checkpoint_path=ckpt, checkpoint_every=1))
+        launches["checkpoint_resume"] = counts
+        emit(dict(phase="checkpoint_resume_video", nvidia_smi=smi, jod=q_full, jod_resumed=q_res,
+                  block_frames=B, checkpoint_pos=pos, checkpoint_bytes=ckpt_bytes,
+                  save_s=io_s.get("_save_checkpoint"), load_s=io_s.get("_load_checkpoint"),
+                  resumed_blocks=resumed.blocks, crash_launches=launches["checkpoint_crash"],
+                  launches=counts))
+        if q_res != q_full or not np.array_equal(s_res["Q_per_ch"], s_full["Q_per_ch"]):
+            raise AssertionError(f"resumed JOD {q_res} vs uninterrupted {q_full}, Q_per_ch "
+                                 f"max diff {np.abs(s_res['Q_per_ch'] - s_full['Q_per_ch']).max()}")
+        if [s for s, n in resumed.blocks if n > 1] != remaining or os.path.exists(ckpt):
+            raise AssertionError(f"resumed run: blocks {resumed.blocks}, expected {remaining} "
+                                 f"after the probe; file left: {os.path.exists(ckpt)}")
+        check_resume_launches(counts, len(remaining), n_levels)
+        # a process that picks another block size resumes the same file
+        os.replace(ckpt + ".copy", ckpt)
+        fv16 = fvt.fvvdp(display_name="standard_4k", block_frames=16)
+        resumed16 = source()
+        (q_16, s_16), launches["checkpoint_resume_b16"] = counted(
+            lambda: fv16.predict_video_source(resumed16, checkpoint_path=ckpt))
+        rel = float(np.max(np.abs(s_16["Q_per_ch"] - s_full["Q_per_ch"])
+                           / np.maximum(np.abs(s_full["Q_per_ch"]), 1e-30)))
+        if not np.allclose(s_16["Q_per_ch"], s_full["Q_per_ch"], rtol=1e-5, atol=0) \
+                or [s for s, n in resumed16.blocks if n > 1] != list(range(pos, N_FRAMES, 16)):
+            raise AssertionError(f"resume in blocks of 16: Q_per_ch rel err {rel}, "
+                                 f"blocks {resumed16.blocks}")
+        # warm wall time: a checkpoint after every block against none
+        walls = {}
+        for mode in ("none", "every_block", "every_block", "none"):
+            kw = {} if mode == "none" else dict(checkpoint_path=ckpt, checkpoint_every=1)
+            walls.setdefault(mode, []).append(warm_seconds(
+                lambda: fv.predict_video_source(source(), **kw), runs=2)[1])
+    emit(dict(phase="checkpoint_walls", nvidia_smi=smi, jod_resumed_b16=q_16,
+              resumed_b16_max_rel_q_per_ch=rel, warm_s_no_checkpoint=walls["none"],
+              warm_s_checkpoint_every_block=walls["every_block"], saves_per_run=1,
+              order="none, every block, every block, none",
+              save_s_all=io_s.get("_save_checkpoint"), load_s_all=io_s.get("_load_checkpoint"),
+              launches_b16=launches["checkpoint_resume_b16"]))
+    return launches
+
+
+def pu_psnr_phase(dev, smi, test_v, ref_v):
+    """PU21-PSNR of the 4K clip on the card (no kernel launches) against
+    device="cpu" (|dB| <= 1e-3); warm seconds and fps."""
+    kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    pp = fvt.pu_psnr()
+    (q, stats), counts = counted(lambda: pp.predict(test_v, ref_v, **kw))
+    times, warm_s = warm_seconds(lambda: pp.predict(test_v, ref_v, **kw))
+    t0 = time.perf_counter()
+    q_cpu, _ = fvt.pu_psnr(device="cpu").predict(test_v, ref_v, **kw)
+    cpu_s = time.perf_counter() - t0
+    emit(dict(phase="pu_psnr_video", nvidia_smi=smi, db=q, db_cpu=q_cpu, abs_err=abs(q - q_cpu),
+              tolerance="|d dB| <= 1e-3", warm_s_runs=times, warm_s_median=warm_s,
+              fps=N_FRAMES / warm_s, cpu_s=cpu_s, launches=counts))
+    if any(counts.values()) or stats is not None or not np.isfinite(q) \
+            or not abs(q - q_cpu) <= 1e-3:
+        raise AssertionError(f"pu_psnr: card {q} dB vs CPU {q_cpu}, launches {counts}")
+    return counts
+
+
+def seeded_image(h, w, seed=5):
+    rng = np.random.RandomState(seed)
+    ref = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+    tst = np.clip(ref.astype(np.int16) + rng.randint(-25, 25, ref.shape), 0, 255).astype(np.uint8)
+    return tst, ref
+
+
+# each step sets one attribute on the metric of the step before it
+# (ROADMAP's sequence of the cores' key)
+KEY_STEPS = [("first call", {}), ("uint8 heatmap", {"heatmap_dtype": "uint8"}),
+             ("boundary pixels", {"ignore_boundary_pixels": True}),
+             ("foveated", {"foveated": True})]
+
+
+def core_key_phase(dev, smi):
+    """The sequence at 1080p on the card: each step's JOD and heatmap dtype
+    those of a metric built fresh for it (|dJOD| <= 1e-6); then a step that
+    replaces the foveated core frees its fixed-gaze tables."""
+    tst, ref = seeded_image(EXTRA_H, EXTRA_W)
+    fv = fvt.fvvdp(display_name="standard_fhd", heatmap="threshold")
+    steps, kw, launches = [], {}, {}
+    for name, attrs in KEY_STEPS:
+        for k, v in attrs.items():
+            setattr(fv, k, v)
+        kw.update(attrs)
+        (q, s), launches[name] = counted(lambda: fv.predict(tst, ref, dim_order="HWC"))
+        q_f, s_f = fvt.fvvdp(display_name="standard_fhd", heatmap="threshold", **kw).predict(
+            tst, ref, dim_order="HWC")
+        steps.append(dict(step=name, jod=q, jod_fresh=q_f, dtype=str(s["heatmap"].dtype),
+                          dtype_fresh=str(s_f["heatmap"].dtype)))
+    core_fov = fv._get_core(EXTRA_W, EXTRA_H)
+    table_bytes = core_fov.fov_table_bytes()
+    held = bool(core_fov._fov_table_cache)
+    gc.collect()                # the fresh metrics above, should a cycle hold them
+    torch.cuda.synchronize()
+    with_tables = torch.cuda.memory_allocated()
+    fv.heatmap_dtype = "float16"                # a new core for the same resolution
+    new_core = fv._get_core(EXTRA_W, EXTRA_H)
+    new_core_tables = bool(new_core._fov_table_cache)
+    cores = len(fv._cores)
+    # the new core's own tensors leave with it, so that what was freed is
+    # what the replaced core held
+    fv._cores = {k: c for k, c in fv._cores.items() if c is not new_core}
+    del new_core
+    gc.collect()
+    torch.cuda.synchronize()
+    freed = with_tables - torch.cuda.memory_allocated()
+    emit(dict(phase="core_key_sequence", nvidia_smi=smi, shape=[EXTRA_H, EXTRA_W], steps=steps,
+              table_bytes=table_bytes, tables_held_before=held, freed_bytes=freed,
+              tables_held_after=bool(core_fov._fov_table_cache), cores=cores,
+              new_core_tables=new_core_tables, launches=launches))
+    bad = [s for s in steps if not abs(s["jod"] - s["jod_fresh"]) <= 1e-6
+           or s["dtype"] != s["dtype_fresh"]]
+    if bad or [s["dtype"] for s in steps] != ["float16", "uint8", "uint8", "uint8"]:
+        raise AssertionError(f"core key sequence: {steps}")
+    if not held or core_fov._fov_table_cache or new_core_tables or not freed >= table_bytes:
+        raise AssertionError(f"the replaced core's tables ({table_bytes} B, held {held}) "
+                             f"freed {freed} B")
+    return launches
+
+
+def update_device_phase(dev, smi):
+    """A metric built on the CPU scores a 1080p clip; moved to the card it
+    scores as a metric built there (|dJOD| <= 1e-6), on the default route."""
+    clip_t, clip_r = synth_clip(EXTRA_H, EXTRA_W, 8)
+    kw = dict(dim_order="HWCF", frames_per_second=FPS)
+    fv = fvt.fvvdp(display_name="standard_fhd", device="cpu")
+    q_cpu, _ = fv.predict(clip_t, clip_r, **kw)
+    fv.update_device("cuda")
+    (q_moved, _), counts = counted(lambda: fv.predict(clip_t, clip_r, **kw))
+    q_card, _ = fvt.fvvdp(display_name="standard_fhd").predict(clip_t, clip_r, **kw)
+    on_card = all(v.is_cuda for lut in fv._luts for v in lut.values() if torch.is_tensor(v))
+    emit(dict(phase="update_device", nvidia_smi=smi, shape=[EXTRA_H, EXTRA_W, 8], jod_cpu=q_cpu,
+              jod_moved=q_moved, jod_card=q_card, luts_on_card=on_card, launches=counts))
+    expect_launches("update_device", counts, MAIN_KERNELS, not_launched(MAIN_KERNELS))
+    if not abs(q_moved - q_card) <= 1e-6 or not on_card or not abs(q_cpu - q_card) <= 1e-4:
+        raise AssertionError(f"update_device: moved {q_moved}, card {q_card}, CPU {q_cpu}")
+    return counts
+
+
+def cli_extras_phase(dev, smi, test_v, ref_v, q_yuv=None):
+    """run_fvvdp.main in-process on phase 4d's .yuv pair with both metrics and
+    a checkpoint: the JOD is 4d's to 4 decimals, the PU21-PSNR that of
+    pu_psnr on the same files, and no checkpoint file is left."""
+    fv = fvt.fvvdp(display_name="standard_4k")
+    frame_bytes = H * W * 3 // 2
+    with tempfile.TemporaryDirectory(prefix="fvvdp_cli_") as tmp:
+        n = min(N_FRAMES, int(0.8 * shutil.disk_usage(tmp).free // (2 * frame_bytes)))
+        paths = [os.path.join(tmp, f"{tag}_{W}x{H}_8b_420_709_30fps.yuv") for tag in ("test", "ref")]
+        for path, clip in zip(paths, (test_v, ref_v)):
+            write_yuv420(path, clip[:, :, 0, :n])
+
+        def file_source():
+            return fvt.fvvdp_video_source_file(*paths, display_photometry="standard_4k",
+                                               device=dev)
+        if q_yuv is None or n != N_FRAMES:
+            q_yuv, _ = fv.predict_video_source(file_source())
+        db, _ = fvt.pu_psnr().predict_video_source(file_source())
+        ckpt = os.path.join(tmp, "state.ckpt")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        cuda_ops.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = run_fvvdp.main(["--test", paths[0], "--ref", paths[1], "--display", "standard_4k",
+                                 "--metrics", "fvvdp", "pu-psnr", "--checkpoint", ckpt])
+        counts = cuda_ops.launch_counts()
+        wall = time.perf_counter() - t0
+        lines = out.getvalue().strip().splitlines()
+        left = sorted(os.listdir(tmp))
+    want = [f"FovVideoVDP={q_yuv:0.4f} [JOD]", f"PU21-PSNR={db:0.4f} [dB]"]
+    emit(dict(phase="cli_extras", nvidia_smi=smi, frames=n, rc=rc, printed=lines, expected=want,
+              wall_s=wall, files_left=left, launches=counts))
+    if rc != 0 or lines[-2:] != want or any("ckpt" in f for f in left):
+        raise AssertionError(f"cli extras: exit {rc}, printed {lines}, expected {want}, "
+                             f"files {left}")
+    expect_launches("cli extras", counts, MAIN_KERNELS, not_launched(MAIN_KERNELS))
+    return counts
+
+
+def extras_phases(dev, smi, test_v, ref_v, q_yuv=None):
+    """Phase 8e.  Returns each case's launches."""
+    launches = checkpoint_phase(dev, smi, test_v, ref_v)
+    torch.cuda.empty_cache()
+    launches["pu_psnr_video"] = pu_psnr_phase(dev, smi, test_v, ref_v)
+    torch.cuda.empty_cache()
+    for step, counts in core_key_phase(dev, smi).items():
+        launches[f"core_key {step}"] = counts
+    torch.cuda.empty_cache()
+    launches["update_device"] = update_device_phase(dev, smi)
+    torch.cuda.empty_cache()
+    launches["cli_extras"] = cli_extras_phase(dev, smi, test_v, ref_v, q_yuv)
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2232,6 +2543,7 @@ def main():
     traced_only = "--traced" in sys.argv
     batch_only = "--batch" in sys.argv
     options_only = "--options" in sys.argv
+    extras_only = "--extras" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -2262,6 +2574,9 @@ def main():
         return 0
     if options_only:
         options_phase(dev, smi, *synth_clip(H, W, N_FRAMES))
+        return 0
+    if extras_only:
+        extras_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
         return 0
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
@@ -2380,7 +2695,7 @@ def main():
     del frames
 
     # 4d-4h. file sources: .yuv, an ffmpeg pipe, the CLI, 10-bit PQ, packed
-    file_source_phases(fv, test_v, ref_v, dev)
+    q_yuv = file_source_phases(fv, test_v, ref_v, dev)
     torch.cuda.empty_cache()
 
     # 5. image through the same entry point
@@ -2698,6 +3013,10 @@ def main():
 
     # 8d. the ablations and options
     options = options_phase(dev, smi, test_v, ref_v)
+    torch.cuda.empty_cache()
+
+    # 8e. checkpoint and resume, PU21-PSNR, the cores' key, update_device, the CLI
+    extras = extras_phases(dev, smi, test_v, ref_v, q_yuv)
 
     # 9. kernels line, result line
     print(smi, flush=True)
@@ -2711,6 +3030,8 @@ def main():
         # launches in each full-width configuration of phase 8d
         row["options_launches"] = {case: counts[row["name"]]
                                    for case, counts in options.items()}
+        # launches in each case of phase 8e
+        row["extras_launches"] = {case: counts[row["name"]] for case, counts in extras.items()}
     emit(dict(kernels=summary))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))

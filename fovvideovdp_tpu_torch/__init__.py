@@ -15,7 +15,10 @@ CSF LUT comes from the packaged ``.npz`` files, a user ``.mat`` cache or the
 analytic generator, in that order.  Files are read by
 ``fvvdp_video_source_file`` (images, raw ``.yuv``, videos through ffmpeg or
 OpenCV) and scored from the command line by ``fvvdp-torch``
-(``python -m fovvideovdp_tpu_torch.run_fvvdp``).
+(``python -m fovvideovdp_tpu_torch.run_fvvdp``).  A streamed video can be
+checkpointed and resumed (``predict_video_source(checkpoint_path=...)``).
+``pu_psnr`` is the second metric, PU21-PSNR; ``preference``,
+``hdrvdp_visualize`` and ``testbench`` hold the reference's extras.
 """
 from fovvideovdp_tpu_torch.content_mapping import fvvdp_content_mapping_equirect
 from fovvideovdp_tpu_torch.display_model import (
@@ -27,6 +30,7 @@ from fovvideovdp_tpu_torch.display_model import (
 )
 from fovvideovdp_tpu_torch.fvvdp import fvvdp
 from fovvideovdp_tpu_torch.io.images import load_image_as_array
+from fovvideovdp_tpu_torch.pupsnr import pu_psnr
 from fovvideovdp_tpu_torch.torch_interop import fvvdp_torch_loss
 from fovvideovdp_tpu_torch.video_source import (
     fvvdp_video_source,
@@ -41,6 +45,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "fvvdp",
+    "pu_psnr",
     "fvvdp_torch_loss",
     "fvvdp_content_mapping_equirect",
     "fvvdp_display_photometry",

@@ -257,7 +257,9 @@ class MetricCore:
                 t = csf_mod.reduce_lut_to_pixel_tables(self.luts[cc], self._band_rho[bb], ecc)
                 if self._fov_trim is not None:
                     lo, hi = self._fov_trim
-                    t = t[lo:hi + 1].contiguous()
+                    # a copy: the slice is contiguous, and as a view it
+                    # would keep every knot's planes alive
+                    t = t[lo:hi + 1].clone()
                 per_cc.append(t)
             tabs.append(tuple(per_cc))
         cache[key] = tabs
@@ -614,20 +616,28 @@ class MetricCore:
 
     def score_video(self, block: Callable, indexed: Callable, n_frames: int,
                     taps: torch.Tensor, pad_idx: np.ndarray, B: int, fov_tables=None,
-                    gaze=None, keep: Optional[Callable] = None) -> torch.Tensor:
+                    gaze=None, keep: Optional[Callable] = None, start: int = 0,
+                    carry=None, Q: Optional[torch.Tensor] = None,
+                    after_block: Optional[Callable] = None) -> torch.Tensor:
         """Q_per_ch (n_bands, 2, n_frames) of a clip streamed B frames at a
         time, each block filtered with the fl-1 frames before it
         (:meth:`video_step`).  ``block(start, count)`` and
         ``indexed(indices)`` give (count, H, W) test and reference luminance
         on the core's device; ``pad_idx``: the padded clip's frame indices
         (``ops.temporal.padding_indices``); ``gaze``: (n_frames, 2) rows, in
-        place of ``fov_tables``; ``keep(heat)`` takes each block's heatmap."""
+        place of ``fov_tables``; ``keep(heat)`` takes each block's heatmap.
+
+        A resumed run starts at frame ``start`` with ``carry`` (the fl-1
+        frames before it, as the loop carries them) and ``Q``, whose frames
+        before ``start`` are already scored; ``after_block(pos, Q, carry_t,
+        carry_r)`` is called after each block, ``pos`` the frames scored."""
         fl = taps.shape[1]
         stream_idx = pad_idx[fl - 1:]  # frame feeding each output frame
-        Q = torch.empty((self.plan.height, 2, n_frames), dtype=torch.float32,
-                        device=self.device)
-        carry_t, carry_r = indexed(pad_idx[:fl - 1])
-        for pos in range(0, n_frames, B):
+        if Q is None:
+            Q = torch.empty((self.plan.height, 2, n_frames), dtype=torch.float32,
+                            device=self.device)
+        carry_t, carry_r = indexed(pad_idx[:fl - 1]) if carry is None else carry
+        for pos in range(start, n_frames, B):
             b = min(B, n_frames - pos)
             blk = stream_idx[pos:pos + b]
             if np.array_equal(blk, np.arange(pos, pos + b)):
@@ -640,6 +650,8 @@ class MetricCore:
             Q[:, :, pos:pos + b] = Q_blk
             if keep is not None:
                 keep(heat)
+            if after_block is not None:
+                after_block(pos + b, Q, carry_t, carry_r)
         return Q
 
     def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor,

@@ -6,10 +6,12 @@ streaming loop, the ``do_temporal_channels=False`` ablation, foveation with
 a fixed or a per-frame gaze, heatmaps on the host or the device),
 ``predict_batch`` on one card (``:953-1163``), the differentiable
 ``predict_traced`` and ``loss`` (``:1165-1242``), ``do_pooling_and_jods`` and
-``write_features_to_json`` (``:1283-1295``), with the MATLAB core's
-ablations and options (``local_adapt``, ``contrast="log"``, the masking
-ablations, ``pu_dilate``, ``ignore_boundary_pixels``, ``band_callback``,
-``content_mapping``) wherever the JAX package takes them.  The default
+``write_features_to_json`` (``:1283-1295``), checkpoint and resume of the
+streaming loop (``:452-562,606-634``) and ``update_device``, with the
+MATLAB core's ablations and options (``local_adapt``, ``contrast="log"``,
+the masking ablations, ``pu_dilate``, ``ignore_boundary_pixels``,
+``band_callback``, ``content_mapping``) wherever the JAX package takes
+them.  The default
 device is the CUDA card; ``device="cpu"`` runs every kernel's plain version
 instead.
 
@@ -26,6 +28,8 @@ from __future__ import annotations
 import functools
 import json
 import logging
+import os
+import zlib
 from typing import Dict
 
 import numpy as np
@@ -198,9 +202,23 @@ class fvvdp:
         tables they cache."""
         self._set_parameters(parameters)
         self._luts = tuple(luts)
+        self._drop_cores()
+
+    def _drop_cores(self) -> None:
         for core in self._cores.values():
             core.drop_fov_tables()
         self._cores = {}
+
+    def update_device(self, device) -> None:
+        """Run on ``device`` from now on: resolved as the constructor resolves
+        it (``"cuda"`` without a card raises).  The LUTs move there, the CSF
+        cache starts anew there, and every core is dropped with its tables
+        (the JAX package only stores the device, ``fovvideovdp_tpu/fvvdp.py:177``)."""
+        self.device = resolve_device(device)
+        self.csf_cache = CSFCache(self.device, self.csf_cache.extra_dirs)
+        self._luts = tuple({k: v.to(self.device) if torch.is_tensor(v) else v
+                            for k, v in lut.items()} for lut in self._luts)
+        self._drop_cores()
 
     def set_display_model(self, display_name="standard_4k", display_photometry=None,
                           display_geometry=None):
@@ -221,7 +239,7 @@ class fvvdp:
                 frames_per_second=0, fixation_point=None, mesh=None):
         """Predict quality for arrays.  Returns (Q_JOD, stats)."""
         if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 7")
+            raise _unsupported("mesh", "queue 1 item 1")
         test_vs = fvvdp_video_source_array(
             test_cont, reference_cont, frames_per_second, dim_order=dim_order,
             display_photometry=self.display_photometry,
@@ -229,12 +247,20 @@ class fvvdp:
         return self.predict_video_source(test_vs, fixation_point=fixation_point)
 
     def _get_core(self, width: int, height: int, with_heatmap: bool = True) -> MetricCore:
-        """The core of this resolution; ``with_heatmap=False``: the core of
-        the same metric without a heatmap, which scores on the kernels'
-        routes (predict_batch returns no heatmap)."""
+        """The core of this resolution and of the attributes a core is built
+        from, keyed as the JAX package keys them
+        (``fovvideovdp_tpu/fvvdp.py:198-199``); ``with_heatmap=False``: the
+        core of the same metric without a heatmap, which scores on the
+        kernels' routes (predict_batch returns no heatmap).  Building one
+        frees the fixed-gaze tables of the other cores of the resolution,
+        so that at most one table set per resolution stays on the card."""
         heatmap = self.heatmap if with_heatmap else None
-        key = (width, height, heatmap)
+        key = (width, height, self.foveated, heatmap, self.heatmap_dtype,
+               self.ignore_boundary_pixels)
         if key not in self._cores:
+            for other, core in self._cores.items():
+                if other[:2] == (width, height):
+                    core.drop_fov_tables()
             plan = PyramidPlan(width, height, self.pix_per_deg)
             try:
                 peak = float(self.display_photometry.get_peak_luminance())
@@ -266,13 +292,16 @@ class fvvdp:
         return int(_BLOCK_MEM_SHARE * free // (bytes_per_px_frame * height * width))
 
     def _pick_block_size(self, height: int, width: int, n_frames: int,
-                         route: str = "fused") -> int:
+                         route: str = "fused", extra_bytes: int = 0) -> int:
         """Frames per block: what half of the free device memory holds at
-        the route's bytes per pixel-frame.  Call it after the fixed-gaze
-        tables are built, so that the free memory excludes them."""
+        the route's bytes per pixel-frame plus ``extra_bytes`` (the raw
+        frames of the block a host-resident source prefetches).  Call it
+        after the fixed-gaze tables are built, so that the free memory
+        excludes them."""
         if self.block_frames is not None:
             return max(1, min(int(self.block_frames), n_frames))
-        by_mem = self._frames_by_memory(height, width, _BLOCK_BYTES_PER_PX_FRAME[route])
+        by_mem = self._frames_by_memory(height, width,
+                                        _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes)
         if by_mem is None:
             return min(_MAX_BLOCK_FRAMES, n_frames)
         return max(1, min(by_mem, _MAX_BLOCK_FRAMES, n_frames))
@@ -327,16 +356,23 @@ class fvvdp:
 
     @torch.no_grad()
     def predict_video_source(self, vid_source, fixation_point=None, mesh=None,
-                             checkpoint_path=None):
+                             checkpoint_path=None, checkpoint_every=8):
         """Score a video source.  ``fixation_point``: one (x, y) point in
         pixels (the centre of the frame by default), or an (N, 2) array with
         one row per frame for a moving gaze; it matters only when the metric
         is foveated, but an (N, 2) array shorter than the video is refused
-        either way, as the JAX package refuses it."""
+        either way, as the JAX package refuses it.
+
+        ``checkpoint_path``: every ``checkpoint_every`` blocks of a streamed
+        video, the scored ``Q_per_ch``, the position and the fl-1 carried
+        frames are written there (atomically), so that a run killed
+        mid-video resumes where it stopped.  A file whose fingerprint (the
+        video's size and first frame, the configuration, the gaze) does not
+        match is ignored; the file is removed on completion.  Refused with a
+        heatmap and for a source without random access; an image and the
+        ``do_temporal_channels=False`` ablation score without one."""
         if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 7")
-        if checkpoint_path is not None:
-            raise _unsupported("checkpoint_path", "queue 1 item 5")
+            raise _unsupported("mesh", "queue 1 item 1")
         height, width, N_frames = vid_source.get_video_size()
 
         if fixation_point is None:
@@ -386,6 +422,9 @@ class fvvdp:
         def block(start, count):
             return on_device(vid_source.get_luminance_block(start, count))
 
+        if checkpoint_path and (N_frames == 1 or not self.do_temporal_channels):
+            logging.warning("checkpoint_path applies to the streaming video "
+                            "path only; ignored for this input")
         if N_frames == 1:
             t, r = block(0, 1)
             Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
@@ -408,10 +447,20 @@ class fvvdp:
             fl = temporal_ops.filter_len_for_fps(fps)
             taps = torch.as_tensor(temporal_ops.temporal_filters(
                 fps, fl, self.sustained_sigma, self.sustained_beta), device=self.device)
+            # the raw frames of the next block, which a host-resident source
+            # prefetches onto the card while this one is scored
+            staged = -(-vid_source.host_block_bytes(1) // (height * width))
+            B = self._pick_block_size(height, width, N_frames, route, staged)
+            resume = {}
+            if checkpoint_path:
+                resume = self._checkpointing(vid_source, checkpoint_path, checkpoint_every,
+                                             core, fl, fps, fixation_point)
             Q_per_ch = core.score_video(
                 block, lambda idx: on_device(vid_source.get_indexed_luminance_block(idx)),
                 N_frames, taps, temporal_ops.padding_indices(N_frames, fl, self.temp_padding),
-                self._pick_block_size(height, width, N_frames, route), fov_tables, gaze, keep)
+                B, fov_tables, gaze, keep, **resume)
+            if checkpoint_path and os.path.isfile(checkpoint_path):
+                os.remove(checkpoint_path)
 
         Q_jod = self.do_pooling_and_jods(Q_per_ch)
         stats = {
@@ -431,6 +480,94 @@ class fvvdp:
                 stats["heatmap"] = np.concatenate(heat_blocks, axis=0).transpose(
                     1, 0, 2, 3)[None]
         return float(Q_jod), stats
+
+    # ------------------------------------------------------------------
+    # checkpoint and resume of the streaming loop
+    # ------------------------------------------------------------------
+    def _checkpointing(self, vid_source, path: str, every: int, core: MetricCore, fl: int,
+                       fps: float, fixation_point: np.ndarray) -> Dict:
+        """The arguments of ``MetricCore.score_video`` that resume from the
+        checkpoint at ``path`` (when it matches this video and
+        configuration) and save one every ``every`` blocks."""
+        if self.do_heatmap:
+            raise RuntimeError("checkpoint_path is not supported together "
+                               "with heatmaps")
+        if not vid_source.supports_random_access():
+            raise RuntimeError(
+                "checkpoint/resume needs a random-access video source "
+                "(resuming must skip already-scored frames): use "
+                "preload=True, a .yuv file, or array input")
+        height, width, N_frames = vid_source.get_video_size()
+        pad_code = {"replicate": 0, "circular": 1, "pingpong": 2}[self.temp_padding]
+        # the first frame's luminance folds in the pixels, the photometry and
+        # the colour space; the block size is left out, since it follows the
+        # card's free memory, which another process may hold
+        p_t, p_r = vid_source.get_luminance_block(0, 1)
+        probe = np.float64(float(p_t.double().sum()) + 2.0 * float(p_r.double().sum()))
+        cfg_crc = zlib.crc32(json.dumps(self.parameters, sort_keys=True).encode())
+        gaze_crc = zlib.crc32(np.ascontiguousarray(fixation_point, np.float32).tobytes())
+        fingerprint = np.asarray(
+            [height, width, N_frames, fl, pad_code, int(round(fps * 1000)),
+             int(round(self.pix_per_deg * 1e3)), int(self.foveated),
+             int(self.contrast == "log"), cfg_crc, gaze_crc,
+             int(self.content_mapping is not None), probe.view(np.int64)], np.int64)
+        resume = {}
+        state = self._load_checkpoint(path, fingerprint, (core.plan.height, 2),
+                                      (fl - 1, height, width), N_frames)
+        if state is not None:
+            pos, Q_done, carry_t, carry_r = state
+            Q = torch.empty((core.plan.height, 2, N_frames), dtype=torch.float32,
+                            device=self.device)
+            Q[:, :, :pos] = torch.as_tensor(Q_done, device=self.device)
+            resume = dict(start=pos, Q=Q, carry=tuple(
+                torch.as_tensor(c, device=self.device).contiguous() for c in (carry_t, carry_r)))
+        blocks = [0]
+
+        def after_block(pos, Q, carry_t, carry_r):
+            blocks[0] += 1
+            if pos < N_frames and blocks[0] % max(1, every) == 0:
+                self._save_checkpoint(path, fingerprint, pos, Q, carry_t, carry_r)
+        return dict(resume, after_block=after_block)
+
+    @staticmethod
+    def _load_checkpoint(path: str, fingerprint: np.ndarray, q_shape, carry_shape,
+                         n_frames: int):
+        """(pos, Q_per_ch of frames 0..pos-1, carry_t, carry_r) as host
+        arrays, saved by :meth:`_save_checkpoint`; None to start afresh: no
+        file, a file of another video or configuration, or one that cannot
+        be read."""
+        if not os.path.isfile(path):
+            return None
+        try:
+            with np.load(path) as d:
+                if not np.array_equal(d["fingerprint"], fingerprint):
+                    logging.warning(f"checkpoint '{path}' belongs to a different "
+                                    f"video/configuration; starting fresh")
+                    return None
+                pos = int(d["pos"])
+                Q_done, carry_t, carry_r = (np.asarray(d[k], dtype=np.float32)
+                                            for k in ("Q_per_ch", "carry_t", "carry_r"))
+            if not 0 < pos < n_frames or Q_done.shape != tuple(q_shape) + (pos,) \
+                    or carry_t.shape != carry_shape or carry_r.shape != carry_shape:
+                raise ValueError(f"position {pos}, Q_per_ch {Q_done.shape}, carries "
+                                 f"{carry_t.shape} and {carry_r.shape}")
+        except Exception as e:   # a truncated or corrupt file: score from scratch
+            logging.warning(f"could not read checkpoint '{path}' ({e}); starting fresh")
+            return None
+        logging.info(f"resuming from checkpoint '{path}' at frame {pos}")
+        return pos, Q_done, carry_t, carry_r
+
+    @staticmethod
+    def _save_checkpoint(path: str, fingerprint: np.ndarray, pos: int, Q: torch.Tensor,
+                         carry_t: torch.Tensor, carry_r: torch.Tensor) -> None:
+        """Q_per_ch of frames 0..pos-1 and the carried frames (log10-encoded
+        under log contrast, as the loop carries them) to ``path``, through a
+        temporary file and a rename."""
+        tmp = path + ".tmp.npz"      # np.savez appends .npz to any other name
+        np.savez(tmp, fingerprint=fingerprint, pos=np.int64(pos),
+                 Q_per_ch=Q[:, :, :pos].cpu().numpy(), carry_t=carry_t.cpu().numpy(),
+                 carry_r=carry_r.cpu().numpy())
+        os.replace(tmp, path)
 
     def _encode(self, lum: torch.Tensor) -> torch.Tensor:
         """Luminance as the core scores it: log10 of it, clipped at 1e-6,
@@ -465,7 +602,7 @@ class fvvdp:
         "N_frames", "N_pairs", "frames_per_second", and for clips
         "Q_per_ch" (n_bands, 2, N, F)."""
         if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 7")
+            raise _unsupported("mesh", "queue 1 item 1")
         gaze_mode = None  # None | "tables" (one shared point) | "per_pair"
         if self.foveated:
             if self.content_mapping is not None:

@@ -7,7 +7,7 @@ a batch on the ``torch.device`` of the :class:`MetricCore` it is given.
 Pairs never talk to each other, so a chunk of pairs is a block of
 independent frames to every kernel: one launch per pyramid level serves the
 chunk.  ``make_mesh``, the ``shard_*`` functions and ``multihost.py`` are not
-ported yet (ROADMAP queue 1 item 7).
+ported yet (ROADMAP queue 1 item 1).
 
 Both read their pairs from a :class:`video_source.PairBatch` (or any object
 with its ``shape`` and ``luminance(start, count, frames=None)``) a chunk at

@@ -4,10 +4,10 @@
 Counterpart of ``fovvideovdp_tpu/run_fvvdp.py``, with the same flags:
 wildcard expansion, display listing with ``--display ?``, heatmaps written
 as PNG (cv2 or PIL) or video (the ffmpeg binary, else cv2), the features
-JSON.  It runs on the CUDA card ``--gpu N`` unless ``--device cpu`` asks for
-the plain PyTorch versions on the CPU.  The options the port does not have
-yet (``--metrics pu-psnr``, ``--checkpoint``, ``--all-devices``) raise
-``NotImplementedError`` naming their ROADMAP item.
+JSON, ``--metrics fvvdp pu-psnr``, ``--checkpoint``.  It runs on the CUDA
+card ``--gpu N`` unless ``--device cpu`` asks for the plain PyTorch versions
+on the CPU.  ``--all-devices`` (several cards) is not ported yet: it raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -152,7 +152,8 @@ def parse_args(argv=None):
     parser.add_argument("--all-devices", action="store_true", default=False,
                         help="shard video frames over every visible device")
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="path for streaming-state checkpoints")
+                        help="path for streaming-state checkpoints; a killed "
+                             "long-video job resumes where it stopped")
     return parser.parse_args(argv)
 
 
@@ -170,12 +171,8 @@ def main(argv=None):
         fvvdp_display_photometry.list_displays()
         return 0
 
-    if "pu-psnr" in args.metrics:
-        raise _unsupported("--metrics pu-psnr", "queue 1 item 5")
-    if args.checkpoint is not None:
-        raise _unsupported("--checkpoint", "queue 1 item 5")
     if args.all_devices:
-        raise _unsupported("--all-devices", "queue 1 item 7")
+        raise _unsupported("--all-devices", "queue 1 item 1")
 
     if args.test is None or args.ref is None:
         logging.error("Paths to both test and reference content needs to be specified.")
@@ -206,14 +203,29 @@ def main(argv=None):
         display_photometry.print()
         display_geometry.print()
 
-    metric = pkg.fvvdp(display_photometry=display_photometry,
-                       display_geometry=display_geometry,
-                       foveated=args.foveated, heatmap=heatmap,
-                       heatmap_dtype=args.heatmap_dtype,
-                       temp_padding=args.temp_padding,
-                       block_frames=args.block_frames, device=device)
-    logging.info("When reporting metric results, please include the following information:")
-    logging.info(metric.get_info_string())
+    metrics = []
+    for mm in args.metrics:
+        if mm == "fvvdp":
+            metrics.append(pkg.fvvdp(display_photometry=display_photometry,
+                                     display_geometry=display_geometry,
+                                     foveated=args.foveated, heatmap=heatmap,
+                                     heatmap_dtype=args.heatmap_dtype,
+                                     temp_padding=args.temp_padding,
+                                     block_frames=args.block_frames, device=device))
+        elif mm == "pu-psnr":
+            if heatmap:
+                logging.warning(f"Skipping heatmap as it is not supported by {mm}")
+            if args.foveated:
+                logging.warning(f"Foveated mode is not supported by {mm}")
+            m = pkg.pu_psnr(device=device)
+            m.display_photometry = display_photometry
+            m.color_space = "sRGB"
+            metrics.append(m)
+        info_str = metrics[-1].get_info_string()
+        if info_str is not None:
+            logging.info("When reporting metric results, please include the "
+                         "following information:")
+            logging.info(info_str)
 
     out_dir = args.output_dir or "."
     os.makedirs(out_dir, exist_ok=True)
@@ -222,39 +234,47 @@ def main(argv=None):
         test_file = args.test[min(kk, N_test - 1)]
         ref_file = args.ref[min(kk, N_ref - 1)]
         logging.info(f"Predicting the quality of '{test_file}' compared to '{ref_file}'")
-        # circular and pingpong padding need random access to decoded frames
-        vs = fvvdp_video_source_file(
-            test_file, ref_file, display_photometry=display_photometry,
-            full_screen_resize=args.full_screen_resize,
-            resize_resolution=display_geometry.resolution, frames=args.nframes,
-            preload=args.temp_padding != "replicate", ffmpeg_cc=args.ffmpeg_cc,
-            verbose=args.verbose, device=device)
-        Q_pred, stats = metric.predict_video_source(vs)
-        if args.quiet:
-            print("{Q:0.4f}".format(Q=Q_pred))
-        else:
-            print("{name}={Q:0.4f} [{units}]".format(
-                name=metric.short_name(), Q=Q_pred, units=metric.quality_unit()))
-
-        base = os.path.splitext(os.path.basename(test_file))[0]
-        if args.features:
-            dest = os.path.join(out_dir, base + "_fmap.json")
-            logging.info(f"Writing feature map '{dest}' ...")
-            metric.write_features_to_json(stats, dest)
-
-        if heatmap and "heatmap" in stats:
-            hm = stats["heatmap"]  # (1, C, F, H, W) float16 or uint8
-            hm_np = np.transpose(hm[0], (1, 2, 3, 0)).astype(np.float32)
-            if np.dtype(hm.dtype) == np.uint8:
-                hm_np /= 255.0  # the writers expect [0, 1] floats
-            if hm.shape[2] > 1:
-                dest = os.path.join(out_dir, base + "_heatmap.mp4")
-                logging.info(f"Writing heat map '{dest}' ...")
-                np2vid(hm_np, dest, vs.get_frames_per_second(), args.verbose)
+        for mm in metrics:
+            # non-replicate padding and checkpoint/resume both need random
+            # access to the decoded frames
+            vs = fvvdp_video_source_file(
+                test_file, ref_file, display_photometry=display_photometry,
+                full_screen_resize=args.full_screen_resize,
+                resize_resolution=display_geometry.resolution, frames=args.nframes,
+                preload=args.temp_padding != "replicate" or args.checkpoint is not None,
+                ffmpeg_cc=args.ffmpeg_cc, verbose=args.verbose, device=device)
+            if isinstance(mm, pkg.fvvdp):
+                ckpt = args.checkpoint
+                if ckpt and max(N_test, N_ref) > 1:
+                    ckpt = f"{ckpt}.{kk}"  # one state file per pair
+                Q_pred, stats = mm.predict_video_source(vs, checkpoint_path=ckpt)
             else:
-                dest = os.path.join(out_dir, base + "_heatmap.png")
-                logging.info(f"Writing heat map '{dest}' ...")
-                np2img(hm_np, dest)
+                Q_pred, stats = mm.predict_video_source(vs)
+            if args.quiet:
+                print("{Q:0.4f}".format(Q=Q_pred))
+            else:
+                print("{name}={Q:0.4f} [{units}]".format(
+                    name=mm.short_name(), Q=Q_pred, units=mm.quality_unit()))
+
+            base = os.path.splitext(os.path.basename(test_file))[0]
+            if args.features and stats is not None:
+                dest = os.path.join(out_dir, base + "_fmap.json")
+                logging.info(f"Writing feature map '{dest}' ...")
+                mm.write_features_to_json(stats, dest)
+
+            if heatmap and stats is not None and "heatmap" in stats:
+                hm = stats["heatmap"]  # (1, C, F, H, W) float16 or uint8
+                hm_np = np.transpose(hm[0], (1, 2, 3, 0)).astype(np.float32)
+                if np.dtype(hm.dtype) == np.uint8:
+                    hm_np /= 255.0  # the writers expect [0, 1] floats
+                if hm.shape[2] > 1:
+                    dest = os.path.join(out_dir, base + "_heatmap.mp4")
+                    logging.info(f"Writing heat map '{dest}' ...")
+                    np2vid(hm_np, dest, vs.get_frames_per_second(), args.verbose)
+                else:
+                    dest = os.path.join(out_dir, base + "_heatmap.png")
+                    logging.info(f"Writing heat map '{dest}' ...")
+                    np2img(hm_np, dest)
     return 0
 
 

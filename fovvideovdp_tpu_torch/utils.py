@@ -1,11 +1,14 @@
-"""Config-file resolution, JSON and .mat loading, the JAX-gradient clip and
-the Gaussian blur.
+"""Config-file resolution, JSON and .mat loading, the JAX-gradient clip,
+the Gaussian blur, the sRGB transfer functions, the PU21 encoding and the
+small helpers of the reference's utils.
 
 Same three-layer precedence as ``fovvideovdp_tpu/utils/__init__.py:25-56``
 (explicit dir > ``$FVVDP_PATH`` > packaged data), so one external config
 directory serves both packages.  The packaged data is this package's own
-copy under ``data/``.  ``load_mat_dict``, ``gaussian_kernel_2d`` and
-``ImGaussFilt`` are the counterparts of ``utils/__init__.py:58-75,125-157``.
+copy under ``data/``.  ``load_mat_dict``, ``gaussian_kernel_2d``,
+``ImGaussFilt``, ``srgb2linear``, ``linear2srgb``, ``PU``, ``img2np``,
+``l2rgb``, ``stack_horizontal``, ``stack_vertical`` and ``platform_info``
+are the counterparts of ``utils/__init__.py:58-209``.
 """
 from __future__ import annotations
 
@@ -129,11 +132,112 @@ class ImGaussFilt:
         for dim in (-2, -1):
             idx = _pad_indices(x.shape[dim], h, self.pad_mode)
             x = x.index_select(dim, torch.as_tensor(idx, device=x.device))
-        K = torch.as_tensor(self.K, device=x.device)[None, None]
-        was = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            y = F.conv2d(x, K)
-        finally:
-            torch.backends.cudnn.allow_tf32 = was
+        y = conv2d_fp32(x, torch.as_tensor(self.K, device=x.device)[None, None])
         return y[0, 0] if squeeze else y
+
+
+def conv2d_fp32(x: torch.Tensor, K: torch.Tensor, padding=0) -> torch.Tensor:
+    """``F.conv2d`` (a cross-correlation, zero padding) in float32 with TF32
+    off on the card, as the JAX package convolves at HIGHEST precision."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv2d(x, K, padding=padding)
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+def srgb2linear(srgb: torch.Tensor) -> torch.Tensor:
+    """sRGB-encoded values in [0, 1] -> linear values (the sRGB EOTF)."""
+    srgb = torch.clamp(srgb, 0.0, 1.0)
+    return torch.where(srgb > 0.04045, ((srgb + 0.055) / 1.055) ** 2.4, srgb / 12.92)
+
+
+def linear2srgb(lin: torch.Tensor) -> torch.Tensor:
+    """Linear values in [0, 1] -> sRGB-encoded values (the inverse EOTF)."""
+    lin = torch.clamp(lin, 0.0, 1.0)
+    return torch.where(lin > 0.0031308, 1.055 * lin ** (1 / 2.4) - 0.055, 12.92 * lin)
+
+
+class PU:
+    """PU21 perceptually-uniform encoding of absolute luminance (tensors):
+    the published PU21 coefficients and formula, as
+    ``fovvideovdp_tpu/utils/__init__.py:87-124``."""
+
+    COEFFS = {
+        "banding": [1.063020987, 0.4200327408, 0.1666005322, 0.2817030548,
+                    1.029472678, 1.119265011, 502.1303377],
+        "banding_glare": [234.0235618, 216.9339286, 0.0001091864237, 0.893206924,
+                          0.06733984121, 1.444718567, 567.6315065],
+        "peaks": [1.057454135, 0.6234292574, 0.3060331179, 0.3702234502,
+                  1.116868695, 1.109926637, 391.3707005],
+        "peaks_glare": [1.374063733, 0.3160810744, 0.1350497609, 0.510558148,
+                        1.049265455, 1.404963498, 427.3579761],
+    }
+
+    def __init__(self, L_min=0.005, L_max=10000, type="banding_glare"):
+        if type not in self.COEFFS:
+            raise ValueError(f"Unknown type: {type}")
+        self.L_min = L_min
+        self.L_max = L_max
+        self.p = self.COEFFS[type]
+        p = self.p
+        self.peak = p[6] * (((p[0] + p[1] * L_max ** p[3]) / (1 + p[2] * L_max ** p[3]))
+                            ** p[4] - p[5])
+
+    def encode(self, Y: torch.Tensor) -> torch.Tensor:
+        """Absolute luminance (cd/m^2) -> PU21 units."""
+        p = self.p
+        Y = torch.clamp(Y, self.L_min, self.L_max)
+        return p[6] * (((p[0] + p[1] * Y ** p[3]) / (1 + p[2] * Y ** p[3])) ** p[4] - p[5])
+
+    def decode(self, V: torch.Tensor) -> torch.Tensor:
+        """PU21 units -> absolute luminance."""
+        p = self.p
+        V_p = torch.clamp(V / p[6] + p[5], min=0.0) ** (1 / p[4])
+        return (torch.clamp(V_p - p[0], min=0.0) / (p[1] - p[2] * V_p)) ** (1 / p[3])
+
+
+def img2np(img) -> np.ndarray:
+    """uint8 image -> float32 in [0, 1]."""
+    return np.array(img, dtype="float32") / 255.0
+
+
+def l2rgb(x: np.ndarray) -> np.ndarray:
+    """A luminance plane (..., 1) replicated into RGB (..., 3)."""
+    return np.concatenate([x, x, x], -1)
+
+
+def stack_horizontal(nparr) -> np.ndarray:
+    return np.concatenate(list(nparr), axis=-2)
+
+
+def stack_vertical(nparr) -> np.ndarray:
+    return np.concatenate(list(nparr), axis=-3)
+
+
+def platform_info() -> str:
+    """One line for benchmark printouts: the host's CPU model and core count
+    from /proc/cpuinfo, and the CUDA cards torch sees."""
+    cpu = "unknown CPU"
+    try:
+        model, cores = None, 0
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    cores += 1
+                    if model is None:
+                        model = line.split(":", 1)[1].strip()
+        if model:
+            cpu = f"{model} x{cores}"
+    except OSError:
+        pass
+    if torch.cuda.is_available():
+        kinds = {}
+        for i in range(torch.cuda.device_count()):
+            kind = torch.cuda.get_device_name(i)
+            kinds[kind] = kinds.get(kind, 0) + 1
+        acc = ", ".join(f"{n}x {k}" for k, n in sorted(kinds.items()))
+    else:
+        acc = "no CUDA card"
+    return f"{cpu} | {acc}"

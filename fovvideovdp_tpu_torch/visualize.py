@@ -1,7 +1,8 @@
-"""Difference-map visualisation: histogram-equalised context tone mapping
-and the threshold / supra-threshold / monochromatic colour maps.
+"""Difference-map visualisation: histogram-equalised context tone mapping,
+the threshold / supra-threshold / monochromatic colour maps, and the gaze
+cross of foveated runs.
 
-Counterpart of ``fovvideovdp_tpu/visualize.py:14-178``.  The JAX package
+Counterpart of ``fovvideovdp_tpu/visualize.py:14-195``.  The JAX package
 builds its 1024-bin histogram and its curve lookup from one-hot matrix
 products because gathers are slow on a TPU; here the same integer bins go
 through ``torch.bincount`` and the curve is gathered, in float32, on the
@@ -109,3 +110,19 @@ def visualize_diff_map_frames(dmap: torch.Tensor, context: torch.Tensor,
     frame has its own tone curve)."""
     return torch.stack([visualize_diff_map(d, c, colormap_type)
                         for d, c in zip(dmap, context)], dim=0)
+
+
+def add_fixation_cross(frame: torch.Tensor, fixation_point, size: int = 21,
+                       value: float = 1.0) -> torch.Tensor:
+    """A gaze cross drawn over ``frame`` (..., H, W) at ``fixation_point``
+    (x, y) in pixels, for debugging foveated runs
+    (matlab/utils/fvvdp_add_fixation_cross.m): 3 pixels wide, ``size``
+    pixels long, of ``value``."""
+    H, W = frame.shape[-2], frame.shape[-1]
+    fx, fy = int(fixation_point[0]), int(fixation_point[1])
+    half = size // 2
+    yy = torch.arange(H, device=frame.device)[:, None]
+    xx = torch.arange(W, device=frame.device)[None, :]
+    on_v = (torch.abs(xx - fx) <= 1) & (torch.abs(yy - fy) <= half)
+    on_h = (torch.abs(yy - fy) <= 1) & (torch.abs(xx - fx) <= half)
+    return torch.where(on_v | on_h, value, frame)

@@ -201,8 +201,9 @@ def test_predict_batch_refuses_what_jax_refuses(case):
 
 
 def test_predict_batch_mesh_names_its_item():
+    # several cards: ROADMAP queue 1 item 1
     fv = fv_port.fvvdp(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 7\b"):
+    with pytest.raises(NotImplementedError, match=r"item 1\b"):
         fv.predict_batch(_BAD, _BAD, dim_order="BHWC", mesh=object())
 
 

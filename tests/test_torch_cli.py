@@ -2,8 +2,9 @@
 script ``fvvdp-torch``) on the CPU against the JAX package on the same
 files: the printed JOD (to its 4 printed decimals), the ``--features`` JSON
 (the same keys; Q_per_ch at rtol 2e-3 / atol 2e-4), ``--display ?``,
-heatmaps, and the options the port does not have yet, which raise and name
-their ROADMAP item.
+heatmaps, ``--metrics fvvdp pu-psnr`` and ``--checkpoint`` (what the JAX
+CLI prints), and ``--all-devices``, which the port does not have yet: it
+raises and names its ROADMAP item.
 """
 import json
 import logging
@@ -144,13 +145,61 @@ def test_module_runs_without_jax():
     assert "standard_4k" in r.stderr
 
 
+def _jax_cli(capsys, *args):
+    """What the JAX package's CLI prints for the same arguments."""
+    from fovvideovdp_tpu import run_fvvdp as jax_cli
+    rc = jax_cli.main(list(args))
+    return rc, capsys.readouterr().out.strip().splitlines()
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--metrics", "pu-psnr"], "item 5"), (["--metrics", "fvvdp", "pu-psnr"], "item 5"),
-    (["--checkpoint", "state.ckpt"], "item 5"), (["--all-devices"], "item 7")])
-def test_unported_flags_raise_and_name_their_item(image_pair, flags, item):
+    (["--metrics", "pu-psnr"], None), (["--metrics", "fvvdp", "pu-psnr"], None),
+    (["--checkpoint", "state.ckpt"], None), (["--all-devices"], "item 1")])
+def test_unported_flags_raise_and_name_their_item(capsys, image_pair, tmp_path, flags, item):
+    """``--metrics pu-psnr`` and ``--checkpoint`` once raised here, naming
+    ROADMAP queue 1 item 5; now they print what the JAX CLI prints on the
+    same pair (on an image, ``--checkpoint`` is ignored with a warning).
+    ``--all-devices`` (several cards) still raises and names its item."""
     tst, ref = image_pair
-    with pytest.raises(NotImplementedError, match=item):
-        run_fvvdp.main(["--test", tst, "--ref", ref, "--device", "cpu"] + flags)
+    flags = [str(tmp_path / f) if f.endswith(".ckpt") else f for f in flags]
+    args = ["--test", tst, "--ref", ref] + flags
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=rf"{item}\b"):
+            run_fvvdp.main(args + ["--device", "cpu"])
+        return
+    rc, lines = _cli(capsys, *args)
+    rc_j, lines_j = _jax_cli(capsys, *args)
+    assert rc == rc_j == 0 and lines == lines_j
+    assert len(lines) == (2 if flags[-1] == "pu-psnr" and "fvvdp" in flags else 1)
+    assert not os.path.exists(str(tmp_path / "state.ckpt"))
+
+
+def test_metrics_and_checkpoint_on_a_video_pair(capsys, yuv_pair, tmp_path):
+    """Both metrics and a checkpoint on a .yuv pair: the two lines the JAX
+    CLI prints, the checkpoint used and removed."""
+    ckpt = str(tmp_path / "state.ckpt")
+    args = ["--test", yuv_pair[0], "--ref", yuv_pair[1], "--display", "standard_hdr_pq",
+            "--metrics", "fvvdp", "pu-psnr", "--checkpoint", ckpt, "--block-frames", "2"]
+    rc, lines = _cli(capsys, *args)
+    rc_j, lines_j = _jax_cli(capsys, *args)
+    assert rc == rc_j == 0 and lines == lines_j and len(lines) == 2
+    assert lines[0].startswith("FovVideoVDP=") and lines[1].startswith("PU21-PSNR=")
+    assert not os.path.exists(ckpt)
+
+
+def test_checkpoint_takes_one_file_per_pair(monkeypatch, yuv_pair, tmp_path):
+    seen = []
+    real = run_fvvdp.pkg.fvvdp.predict_video_source
+
+    def spy(self, vs, **kw):
+        seen.append((kw.get("checkpoint_path"), vs.supports_random_access()))
+        return real(self, vs, **kw)
+    monkeypatch.setattr(run_fvvdp.pkg.fvvdp, "predict_video_source", spy)
+    ckpt = str(tmp_path / "state.ckpt")
+    rc = run_fvvdp.main(["--test", yuv_pair[0], yuv_pair[1], "--ref", yuv_pair[1],
+                         "--display", "standard_hdr_pq", "--checkpoint", ckpt,
+                         "--device", "cpu", "--quiet"])
+    assert rc == 0 and seen == [(ckpt + ".0", True), (ckpt + ".1", True)]
 
 
 def test_gpu_flag_selects_the_card(monkeypatch, image_pair):
@@ -204,14 +253,18 @@ def test_unported_options_name_their_current_item(kwargs):
         assert np.all(s_p["Q_per_ch"][:, 1] == 0)
 
 
-def test_unported_call_options_name_their_current_item(image_pair):
+def test_unported_call_options_name_their_current_item(image_pair, tmp_path):
+    """``mesh`` (several cards) raises and names its item; a checkpoint
+    path, which once raised naming item 5, is ignored for an image, as the
+    JAX package ignores it."""
     fv = port_fvvdp(device="cpu")
     arr = np.zeros((8, 8, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match=r"item 7\b"):
+    with pytest.raises(NotImplementedError, match=r"item 1\b"):
         fv.predict(arr, arr, dim_order="HWC", mesh=object())
     vs = run_fvvdp.fvvdp_video_source_file(*image_pair, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 5\b"):
-        fv.predict_video_source(vs, checkpoint_path="state.ckpt")
+    ckpt = str(tmp_path / "state.ckpt")
+    q, _ = fv.predict_video_source(vs, checkpoint_path=ckpt)
+    assert q == fv.predict_video_source(vs)[0] and not os.path.exists(ckpt)
 
 
 def test_np2vid_cv2_roundtrip(tmp_path, monkeypatch):

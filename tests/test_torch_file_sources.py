@@ -433,12 +433,35 @@ def test_blocking_pipe_reads_match_native(fake_ffmpeg):
 
 
 def test_checkpoint_is_not_ported(fake_ffmpeg):
+    """Checkpointing, which once raised here, runs on a preloaded pipe
+    source (a checkpoint after every block, removed at the end) and scores
+    what the JAX package scores; the streaming pipe source is refused in
+    JAX's words."""
     tst, ref = _pair(fake_ffmpeg)
-    pm = fv_port.fvvdp(display_name="standard_fhd", device="cpu")
-    vs = port_vsf.fvvdp_video_source_file(tst, ref, display_photometry="standard_fhd",
-                                          device="cpu", preload=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pm.predict_video_source(vs, checkpoint_path=str(fake_ffmpeg / "s.ckpt"))
+    ckpt = str(fake_ffmpeg / "s.ckpt")
+    pm = fv_port.fvvdp(display_name="standard_fhd", block_frames=2, device="cpu")
+    jm = fv_jax.fvvdp(display_name="standard_fhd", block_frames=2)
+
+    def port_source(preload):
+        return port_vsf.fvvdp_video_source_file(tst, ref, display_photometry="standard_fhd",
+                                                device="cpu", preload=preload)
+    q_p, s_p = pm.predict_video_source(port_source(True), checkpoint_path=ckpt,
+                                       checkpoint_every=1)
+    assert not os.path.exists(ckpt)
+    q_plain, s_plain = pm.predict_video_source(port_source(True))
+    assert q_p == q_plain and np.array_equal(s_p["Q_per_ch"], s_plain["Q_per_ch"])
+    q_j, s_j = jm.predict_video_source(
+        jax_vsf.fvvdp_video_source_file(tst, ref, display_photometry="standard_fhd",
+                                        preload=True), checkpoint_path=ckpt)
+    assert abs(q_p - q_j) <= 1e-4
+    np.testing.assert_allclose(s_p["Q_per_ch"], np.asarray(s_j["Q_per_ch"]),
+                               rtol=2e-3, atol=2e-4)
+    with pytest.raises(RuntimeError, match="random-access") as port_err:
+        pm.predict_video_source(port_source(False), checkpoint_path=ckpt)
+    with pytest.raises(RuntimeError, match="random-access") as jax_err:
+        jm.predict_video_source(jax_vsf.fvvdp_video_source_file(
+            tst, ref, display_photometry="standard_fhd"), checkpoint_path=ckpt)
+    assert str(port_err.value) == str(jax_err.value)
 
 
 # ---------------------------------------------------------------------------

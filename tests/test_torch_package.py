@@ -154,7 +154,10 @@ def test_constructor_rejects_bad_values(kwargs, error):
         fvvdp(device="cpu", **kwargs)
 
 
-def test_unsupported_call_options_raise():
+def test_unsupported_call_options_raise(tmp_path):
+    """``mesh`` (several cards) raises naming its ROADMAP item; a per-frame
+    fixation point scores; a checkpoint path, which once raised here,
+    scores as the run without one and leaves no file."""
     fv = fvvdp(device="cpu")
     test, ref = _tiny_video()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -168,8 +171,11 @@ def test_unsupported_call_options_raise():
     vs = fvt.fvvdp_video_source_array(test, ref, 30, dim_order="HWCF",
                                       display_photometry=fv.display_photometry,
                                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fv.predict_video_source(vs, checkpoint_path="ckpt.npz")
+    ckpt = str(tmp_path / "ckpt.npz")
+    q_ck, s_ck = fv.predict_video_source(vs, checkpoint_path=ckpt, checkpoint_every=1)
+    q_plain, s_plain = fv.predict(test, ref, **kw)
+    assert q_ck == q_plain and np.array_equal(s_ck["Q_per_ch"], s_plain["Q_per_ch"])
+    assert not os.path.exists(ckpt)
 
 
 @pytest.mark.parametrize("broken", ["non_uniform_Y", "unshared_Y"])
