@@ -136,6 +136,23 @@ Phases, each raising on failure:
      1e-6, on the default route); cli_extras (run_fvvdp.main in-process on
      4d's .yuv pair with --metrics fvvdp pu-psnr --checkpoint: both lines,
      the JOD 4d's to 4 decimals, no checkpoint file left);
+  8f. scoring over a mesh (parallel.make_mesh) and over processes, on the
+     one card: a mesh of two slots on cuda:0 against the same metric without
+     a mesh, JOD and Q_per_ch within 1e-6 relative (mesh_video: the 4K clip
+     streamed, checked against the reference's JOD too, each slot's
+     launches exact, warm walls in turns, the peak, scoring with each slot
+     converting its own frames beside the blocks converted on the metric's
+     device; mesh_fixed_gaze, mesh_moving_gaze, mesh_heatmap: 8 frames of
+     the clip, the heatmap within 2e-3; mesh_batch_images,
+     mesh_batch_clips: 64 512x384 pairs and 3 1080p clips through
+     predict_batch; mesh_checkpoint_resume: the clip in blocks of 32
+     crashed after block 0 and resumed bit for bit, only the second block
+     and its halo read); mesh_processes (two processes of this script,
+     --mesh-worker, in a gloo group on localhost, each scoring its own 32
+     pairs through predict_batch, each JOD within 1e-6 of its solo predict;
+     both killed on failure or after their own time limit); with more than
+     one card visible, mesh_cards (the clip and 256 pairs on 1, 2 and 4
+     cards: JODs, fps, each card's peak);
   9. the kernels line, then the result line.
 
 Every path has its own expectation of which kernels must launch and which
@@ -181,7 +198,18 @@ result line;
     python3 chip_smoke.py --extras
 
 runs phases 1, 2 and 8e only (checkpoint and resume, PU21-PSNR, the cores'
-key, update_device, the CLI's extras), and prints no result line.
+key, update_device, the CLI's extras), and prints no result line;
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1, 2 and 8f only (a mesh and processes; on a machine with four
+cards, mesh_cards too), and prints no result line.
+
+    python3 chip_smoke.py --mesh-profile
+
+times the stages of 256 pairs through predict_batch on card 0 and on a mesh
+of every visible card, slot by slot, with torch.profiler's busiest host ops;
+one JSON line per case.
 """
 import contextlib
 import functools
@@ -192,6 +220,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import stat
 import subprocess
 import sys
@@ -216,6 +245,8 @@ from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.cuda import temporal as tmp
 from fovvideovdp_tpu_torch import native, run_fvvdp
+from fovvideovdp_tpu_torch.parallel import make_mesh
+from fovvideovdp_tpu_torch.parallel.sharding import split_rows
 from fovvideovdp_tpu_torch.ops.pyramid import K5
 from fovvideovdp_tpu_torch.video_source_yuv import yuv_block_to_luminance
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
@@ -2530,20 +2561,496 @@ def extras_phases(dev, smi, test_v, ref_v, q_yuv=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 8f. scoring over a mesh: two slots on the card, two processes on the card,
+# and every visible card when there are several
+# ---------------------------------------------------------------------------
+MESH_TOL = 1e-6            # relative, JOD and Q_per_ch, mesh against one device
+MESH_FRAMES = 8            # depth of the foveated and heatmap clips under the mesh
+MP_PAIRS = 32              # 512x384 pairs per process of the two-process run
+MP_TIMEOUT_S = 180         # the two processes' own limit
+SCALE_PAIRS = 256          # predict_batch pairs of the multi-card run
+
+
+def rel_err_max(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-30)))
+
+
+def counted_slots(fn, n_slots):
+    """fn() with the launch counts set to 0 just before; the totals and each
+    slot's counts read just after."""
+    cuda_ops.reset_launch_counts()
+    out = fn()
+    return out, cuda_ops.launch_counts(), [cuda_ops.launch_counts(k) for k in range(n_slots)]
+
+
+def sub_blocks(B, n_frames, n_slots, start=0):
+    """How many sub-blocks each slot scores when blocks of B frames from
+    ``start`` are split over n_slots (parallel.sharding.split_rows)."""
+    subs = [0] * n_slots
+    for pos in range(start, n_frames, B):
+        for k, (a, b) in enumerate(split_rows(min(B, n_frames - pos), n_slots)):
+            subs[k] += b > a
+    return subs
+
+
+def check_slot_launches(case, per_slot, subs, n_levels, per_level, others=()):
+    """Each slot launched temporal_pair once per sub-block, each kernel of
+    ``per_level`` once per level per sub-block, each of ``others`` at
+    least once, and nothing else."""
+    for k, (got, s) in enumerate(zip(per_slot, subs)):
+        want = dict({name: n_levels * s for name in per_level}, temporal_pair=s)
+        bad = {name: n for name, n in got.items()
+               if (name in others and not n > 0)
+               or (name not in others and n != want.get(name, 0))}
+        if bad:
+            raise AssertionError(f"{case}: slot {k} launched {got}, expected {want} "
+                                 f"(and {others} > 0) for {s} sub-blocks")
+
+
+class MeshBlockLog(fvt.fvvdp_video_source_array):
+    """The array source, counting reads of more than one frame, whether a
+    block on its device or a slot's frames (luminance_at), and raising on
+    the read after the ``limit``-th: a crash mid-video under a mesh."""
+
+    def __init__(self, *a, limit=None, **kw):
+        super().__init__(*a, **kw)
+        self.limit, self.reads, self.frames = limit, 0, []
+        self.lock = __import__("threading").Lock()
+
+    def _read(self, idx):
+        if len(idx) > 1:
+            with self.lock:
+                self.reads += 1
+                if self.limit is not None and self.reads > self.limit:
+                    raise RuntimeError("simulated crash")
+                self.frames.extend(int(i) for i in idx)
+
+    def get_luminance_block(self, start, count):
+        self._read(np.arange(start, start + count))
+        return super().get_luminance_block(start, count)
+
+    def luminance_at(self, indices, device):
+        self._read(np.asarray(indices))
+        return super().luminance_at(indices, device)
+
+
+def mesh_video_phase(smi, test_v, ref_v, mesh):
+    """The 60-frame 4K clip streamed over the mesh against the same metric
+    without one: JOD and Q_per_ch within MESH_TOL (predicted bit for bit),
+    the JOD against the reference's; launches per slot; warm walls in
+    turns, fps and the peak."""
+    fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0")
+    n_levels = fv._get_core(W, H).plan.height
+    q_one, s_one = fv.predict(test_v, ref_v, dim_order="HWCF", frames_per_second=FPS)
+    B = fv._pick_mesh_block(H, W, N_FRAMES, mesh)
+    (q, s), totals, per_slot = counted_slots(lambda: fv.predict(
+        test_v, ref_v, dim_order="HWCF", frames_per_second=FPS, mesh=mesh), mesh.size)
+    subs = sub_blocks(B, N_FRAMES, mesh.size)
+    check_slot_launches("mesh_video", per_slot, subs, n_levels,
+                        ("gausspyr_reduce", "expand_score2"))
+    err_q, err_pc = rel_err_max(q, q_one), rel_err_max(s["Q_per_ch"], s_one["Q_per_ch"])
+    if not err_q <= MESH_TOL or not err_pc <= MESH_TOL or not abs(q - GOLDEN_SYNTH_Q) <= JOD_TOL:
+        raise AssertionError(f"mesh_video: JOD {q} vs one card {q_one} ({err_q}), Q_per_ch "
+                             f"{err_pc}, reference {GOLDEN_SYNTH_Q}")
+    call = dict(dim_order="HWCF", frames_per_second=FPS)
+    walls = {"mesh": [], "one": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for how in ("mesh", "one", "one", "mesh"):
+        kw = dict(call, mesh=mesh) if how == "mesh" else call
+        walls[how] += warm_seconds(lambda: fv.predict(test_v, ref_v, **kw), runs=2)[0]
+    peak = torch.cuda.max_memory_allocated()
+    warm = {k: float(np.median(v)) for k, v in walls.items()}
+    # scoring a source already on the card: each slot converting its own
+    # frames, against the blocks converted on the metric's device and each
+    # slot's luminance copied from there (luminance_at turned off), in turns
+    vs = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
+                                      display_photometry=fv.display_photometry, device="cuda:0")
+    vs_dev = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
+                                          display_photometry=fv.display_photometry,
+                                          device="cuda:0")
+    vs_dev.luminance_at = None
+    scores = {"slots": [], "device": []}
+    for how in ("slots", "device", "device", "slots"):
+        src = vs if how == "slots" else vs_dev
+        scores[how] += warm_seconds(lambda: fv.predict_video_source(src, mesh=mesh), runs=2)[0]
+    q_dev, _ = fv.predict_video_source(vs_dev, mesh=mesh)
+    del vs, vs_dev
+    if not rel_err_max(q_dev, q_one) <= MESH_TOL:
+        raise AssertionError(f"mesh_video, luminance on the metric's device: {q_dev} vs {q_one}")
+    emit(dict(phase="mesh_video", nvidia_smi=smi, slots=[str(d) for d in mesh.slots], jod=q,
+              jod_one_card=q_one, reference_jod=GOLDEN_SYNTH_Q, rel_err_jod=err_q,
+              rel_err_q_per_ch=err_pc, bit_for_bit=bool(q == q_one and np.array_equal(
+                  s["Q_per_ch"], s_one["Q_per_ch"])),
+              block_frames=B, sub_blocks_per_slot=subs, warm_s_runs=walls,
+              warm_s_median=warm["mesh"], warm_s_median_one_card=warm["one"],
+              fps=N_FRAMES / warm["mesh"], fps_one_card=N_FRAMES / warm["one"],
+              order="mesh, one, one, mesh", peak_bytes=peak,
+              score_s_runs=scores, score_s_median_slot_luminance=float(np.median(
+                  scores["slots"])), score_s_median_device_luminance=float(np.median(
+                      scores["device"])), jod_device_luminance=q_dev,
+              launches=totals, launches_per_slot=per_slot))
+    return totals, q_one
+
+
+def mesh_clip_cases(smi, test_v, ref_v, mesh):
+    """A fixed gaze, a moving gaze and a threshold heatmap on 8 frames of the
+    clip, each against the same metric without the mesh."""
+    sub_t = np.ascontiguousarray(test_v[..., :MESH_FRAMES])
+    sub_r = np.ascontiguousarray(ref_v[..., :MESH_FRAMES])
+    call = dict(dim_order="HWCF", frames_per_second=FPS)
+    cases = {
+        "mesh_fixed_gaze": (dict(foveated=True),
+                            dict(fixation_point=np.array([W / 3, H / 3], np.float32)),
+                            ("gausspyr_reduce", "expand_contrast", "band_score2_fov")),
+        "mesh_moving_gaze": (dict(foveated=True),
+                             dict(fixation_point=sweeping_gaze(W, H, MESH_FRAMES)),
+                             ("gausspyr_reduce", "expand_contrast", "mov_score")),
+        # the composition's launches per level are not fixed: each must launch
+        "mesh_heatmap": (dict(heatmap="threshold"), {}, ()),
+    }
+    launches = {}
+    for case, (kw, ckw, per_level) in cases.items():
+        fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0", **kw)
+        n_levels = fv._get_core(W, H).plan.height
+        q_one, s_one = fv.predict(sub_t, sub_r, **call, **ckw)
+        B = fv._pick_mesh_block(H, W, MESH_FRAMES, mesh,
+                                fvvdp_module()._memory_route(
+                                    fv._get_core(W, H), case == "mesh_moving_gaze"))
+        t0 = time.perf_counter()
+        (q, s), totals, per_slot = counted_slots(
+            lambda: fv.predict(sub_t, sub_r, mesh=mesh, **call, **ckw), mesh.size)
+        wall = time.perf_counter() - t0
+        subs = sub_blocks(B, MESH_FRAMES, mesh.size)
+        check_slot_launches(case, per_slot, subs, n_levels, per_level,
+                            () if per_level else ("gausspyr_reduce", "expand_contrast"))
+        err_q, err_pc = rel_err_max(q, q_one), rel_err_max(s["Q_per_ch"], s_one["Q_per_ch"])
+        heat_err = None
+        if "heatmap" in s_one:
+            heat_err = worst(s["heatmap"].astype(np.float32), s_one["heatmap"].astype(np.float32))
+        emit(dict(phase=case, nvidia_smi=smi, frames=MESH_FRAMES, jod=q, jod_one_card=q_one,
+                  rel_err_jod=err_q, rel_err_q_per_ch=err_pc, heatmap_max_abs_err=heat_err,
+                  block_frames=B, sub_blocks_per_slot=subs, wall_s=wall, launches=totals,
+                  launches_per_slot=per_slot))
+        if not err_q <= MESH_TOL or not err_pc <= MESH_TOL \
+                or (heat_err is not None and not heat_err <= 2e-3):
+            raise AssertionError(f"{case}: JOD {q} vs {q_one} ({err_q}), Q_per_ch {err_pc}, "
+                                 f"heatmap {heat_err}")
+        launches[case] = totals
+        del fv, s, s_one
+        torch.cuda.empty_cache()
+    return launches
+
+
+def fvvdp_module():
+    return importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
+
+
+def mesh_batch_cases(smi, mesh):
+    """64 seeded 512x384 RGB pairs and 3 1080p clips through
+    predict_batch(mesh=), each against the same metric without the mesh."""
+    img_t, img_r = image_batch(IMG_N, IMG_H, IMG_W)
+    clip_t, clip_r = clip_batch(CLIP_N, HD_H, HD_W, CLIP_FRAMES)
+    cases = {"mesh_batch_images": (img_t, img_r, dict(dim_order="BHWC"), IMG_N),
+             "mesh_batch_clips": (clip_t, clip_r, dict(dim_order="BHWCF", frames_per_second=FPS),
+                                  CLIP_N * CLIP_FRAMES)}
+    launches = {}
+    for case, (t, r, call, frames) in cases.items():
+        fv = fvt.fvvdp(display_name="standard_fhd", device="cuda:0")
+        j_one, s_one = fv.predict_batch(t, r, **call)
+        (j, s), totals, per_slot = counted_slots(
+            lambda: fv.predict_batch(t, r, mesh=mesh, **call), mesh.size)
+        must = ("gausspyr_reduce", "expand_score2") + (("temporal_pair",) if "F" in
+                                                        call["dim_order"] else ())
+        for k, counts in enumerate(per_slot):
+            expect_launches(f"{case} slot {k}", counts, must, not_launched(must))
+        err = rel_err_max(j, j_one)
+        err_pc = rel_err_max(s["Q_per_ch"], s_one["Q_per_ch"]) if "Q_per_ch" in s else 0.0
+        walls = {"mesh": [], "one": []}
+        for how in ("mesh", "one", "one", "mesh"):
+            kw = dict(call, mesh=mesh) if how == "mesh" else call
+            walls[how] += warm_seconds(lambda: fv.predict_batch(t, r, **kw), runs=2)[0]
+        warm = {k: float(np.median(v)) for k, v in walls.items()}
+        emit(dict(phase=case, nvidia_smi=smi, pairs=int(t.shape[0]), rel_err_jods=err,
+                  rel_err_q_per_ch=err_pc, jods=j[:4].tolist(), warm_s_runs=walls,
+                  warm_s_median=warm["mesh"], warm_s_median_one_card=warm["one"],
+                  frames_per_s=frames / warm["mesh"], frames_per_s_one_card=frames / warm["one"],
+                  order="mesh, one, one, mesh", launches=totals, launches_per_slot=per_slot))
+        if not err <= MESH_TOL or not err_pc <= MESH_TOL or j.shape != j_one.shape:
+            raise AssertionError(f"{case}: JODs {j[:4]} vs {j_one[:4]} ({err}), Q_per_ch {err_pc}")
+        launches[case] = totals
+    return launches
+
+
+def mesh_checkpoint_case(smi, test_v, ref_v, mesh, q_one):
+    """The clip under the mesh in blocks of 32 (16 frames per slot), crashed
+    after block 0 with a checkpoint after every block, then resumed under
+    the mesh: bit for bit against the clean mesh run, only the second
+    block's frames and halo read, each slot launching for one sub-block."""
+    fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0", block_frames=32)
+    n_levels = fv._get_core(W, H).plan.height
+    fl = temporal_ops.filter_len_for_fps(FPS)
+
+    def source(limit=None):
+        return MeshBlockLog(test_v, ref_v, FPS, dim_order="HWCF",
+                            display_photometry=fv.display_photometry, device="cuda:0",
+                            limit=limit)
+    q_clean, s_clean = fv.predict_video_source(source(), mesh=mesh)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "mesh.ckpt")
+        # block 0's two slot reads, then the carried frames the save reads
+        try:
+            fv.predict_video_source(source(limit=mesh.size + 1), mesh=mesh,
+                                    checkpoint_path=ckpt, checkpoint_every=1)
+            raise AssertionError("mesh checkpoint: the source did not crash")
+        except RuntimeError as e:
+            if "simulated crash" not in str(e):
+                raise
+        saved = os.path.getsize(ckpt)
+        resumed = source()
+        (q, s), totals, per_slot = counted_slots(lambda: fv.predict_video_source(
+            resumed, mesh=mesh, checkpoint_path=ckpt), mesh.size)
+        left = os.path.exists(ckpt)
+    subs = sub_blocks(32, N_FRAMES, mesh.size, start=32)
+    check_slot_launches("mesh_checkpoint", per_slot, subs, n_levels,
+                        ("gausspyr_reduce", "expand_score2"))
+    first = min(resumed.frames)
+    bit = q == q_clean and np.array_equal(s["Q_per_ch"], s_clean["Q_per_ch"])
+    emit(dict(phase="mesh_checkpoint_resume", nvidia_smi=smi, jod=q, jod_clean_mesh=q_clean,
+              jod_one_card=q_one, bit_for_bit=bool(bit), checkpoint_bytes=saved,
+              first_frame_read=first, reads=resumed.reads, file_left=left, launches=totals,
+              launches_per_slot=per_slot))
+    if not bit or left or first != 32 - (fl - 1) or not rel_err_max(q, q_one) <= MESH_TOL:
+        raise AssertionError(f"mesh checkpoint: JOD {q} vs clean {q_clean} (bit for bit "
+                             f"{bit}), one card {q_one}, first frame read {first}, file "
+                             f"left {left}")
+    return totals
+
+
+def mesh_worker(pid, port, out):
+    """One of the two processes of mesh_processes_case (run as
+    ``chip_smoke.py --mesh-worker PID PORT OUT``): its own 32 pairs through
+    predict_batch in a gloo group of two on localhost, on card 0, and each
+    pair alone through predict."""
+    import torch.distributed as dist
+    from fovvideovdp_tpu_torch.parallel import init_multihost
+    init_multihost(f"localhost:{port}", num_processes=2, process_id=pid, local_device_ids=[0])
+    try:
+        test, ref = image_batch(MP_PAIRS, IMG_H, IMG_W, seed=10 + pid)
+        fv = fvt.fvvdp(display_name="standard_fhd")
+        fv.predict_batch(test, ref, dim_order="BHWC")        # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (jods, stats), launches = counted(lambda: fv.predict_batch(test, ref, dim_order="BHWC"))
+        batch_s = time.perf_counter() - t0
+        solo = [fv.predict(test[i], ref[i], dim_order="HWC")[0] for i in range(MP_PAIRS)]
+        with open(out, "w") as f:
+            json.dump(dict(pid=pid, jods=jods.tolist(), solo=solo, batch_s=batch_s,
+                           n_processes=stats["n_processes"], launches=launches), f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_processes_case(smi):
+    """Two processes on the card, each scoring its own 32 pairs through
+    predict_batch, the results gathered over gloo: each equals its pairs'
+    solo predict within 1e-6 JOD.  Both are killed if either fails or the
+    limit passes."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"proc{i}.json") for i in range(2)]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-worker",
+                                   str(i), str(port), outs[i]],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for i in range(2)]
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=MP_TIMEOUT_S)
+                if p.returncode != 0:
+                    raise AssertionError(f"mesh process exited {p.returncode}: {err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        res = []
+        for out in outs:
+            with open(out) as f:
+                res.append(json.load(f))
+    errs = [worst(r["jods"], r["solo"]) for r in res]
+    emit(dict(phase="mesh_processes", nvidia_smi=smi, processes=2, pairs_per_process=MP_PAIRS,
+              max_abs_vs_solo=errs, n_processes=[r["n_processes"] for r in res],
+              batch_s=[r["batch_s"] for r in res], wall_s=wall,
+              jods=[r["jods"][:4] for r in res], launches=[r["launches"] for r in res]))
+    if any(not e <= 1e-6 for e in errs) or any(r["n_processes"] != 2 for r in res) \
+            or any(len(r["jods"]) != MP_PAIRS for r in res):
+        raise AssertionError(f"mesh processes: {errs}, {[r['n_processes'] for r in res]}")
+    return res[0]["launches"]
+
+
+def mesh_cards_case(smi, test_v, ref_v):
+    """With several cards visible: the 4K clip streamed and 256 512x384
+    pairs through predict_batch on meshes of 1, 2 and 4 cards; JODs within
+    MESH_TOL of one card's, warm fps (the clip's with and without building
+    its source, the upload to card 0), and each card's peak."""
+    n_cards = torch.cuda.device_count()
+    smi_cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    img_t, img_r = image_batch(SCALE_PAIRS, IMG_H, IMG_W, seed=3)
+    rows, ref_q, ref_j = [], None, None
+    for n in (k for k in (1, 2, 4) if k <= n_cards):
+        mesh = None if n == 1 else make_mesh([f"cuda:{i}" for i in range(n)])
+        fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0")
+        fv_b = fvt.fvvdp(display_name="standard_fhd", device="cuda:0")
+        video = lambda: fv.predict(test_v, ref_v, dim_order="HWCF",  # noqa: E731
+                                   frames_per_second=FPS, mesh=mesh)
+        batch = lambda: fv_b.predict_batch(img_t, img_r, dim_order="BHWC", mesh=mesh)  # noqa: E731
+        vs = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
+                                          display_photometry=fv.display_photometry,
+                                          device="cuda:0")
+        score = lambda: fv.predict_video_source(vs, mesh=mesh)  # noqa: E731
+        q, _ = video()
+        j, _ = batch()
+        for i in range(n_cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        v_times, v_s = warm_seconds(video)
+        s_times, s_s = warm_seconds(score)
+        b_times, b_s = warm_seconds(batch)
+        # the same source with the slots' own conversion turned off: each
+        # block converted on card 0 and the slots' luminance copied from there
+        vs.luminance_at = None
+        q_c, _ = score()
+        c_times, c_s = warm_seconds(score)
+        del vs
+        ref_q = q if ref_q is None else ref_q
+        ref_j = j if ref_j is None else ref_j
+        row = dict(cards=n, jod=q, rel_err_jod=rel_err_max(q, ref_q),
+                   batch_rel_err=rel_err_max(j, ref_j), video_warm_s_runs=v_times,
+                   video_fps=N_FRAMES / v_s, video_score_s_runs=s_times,
+                   video_score_fps=N_FRAMES / s_s, video_score_card0_lum_s_runs=c_times,
+                   video_score_card0_lum_fps=N_FRAMES / c_s,
+                   rel_err_jod_card0_lum=rel_err_max(q_c, q), batch_warm_s_runs=b_times,
+                   batch_pairs_per_s=SCALE_PAIRS / b_s,
+                   peak_bytes_per_card=[torch.cuda.max_memory_allocated(i) for i in range(n)])
+        rows.append(row)
+        emit(dict(phase="mesh_cards", nvidia_smi=smi, nvidia_smi_cards=smi_cards, **row))
+        if not row["rel_err_jod"] <= MESH_TOL or not row["batch_rel_err"] <= MESH_TOL \
+                or not row["rel_err_jod_card0_lum"] <= MESH_TOL:
+            raise AssertionError(f"mesh over {n} cards: {row}")
+        del fv, fv_b
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_profile(dev):
+    """--mesh-profile: where the time of a mesh over every visible card
+    goes.  The 256 512x384 pairs of phase 8f through predict_batch, on card 0
+    alone and on all cards: each slot's seconds of building its PairBatch
+    (the upload of its rows) and of converting and scoring them, each ending
+    in a synchronise of its stream, beside the whole call's; then
+    torch.profiler over one warm call of each: its 15 ops with the most
+    host time and its 10 with the most device time.  One JSON line per
+    case."""
+    from fovvideovdp_tpu_torch.video_source import PairBatch, rgb_to_y
+    smi = nvidia_smi("name,power.limit")
+    n_cards = torch.cuda.device_count()
+    img_t, img_r = image_batch(SCALE_PAIRS, IMG_H, IMG_W, seed=3)
+    meshes = {"card0": make_mesh(["cuda:0"]),
+              "cards": make_mesh([f"cuda:{i}" for i in range(n_cards)])}
+    for name, mesh in meshes.items():
+        fv = fvt.fvvdp(display_name="standard_fhd", device="cuda:0")
+        core = fv._get_core(IMG_W, IMG_H, with_heatmap=False)
+        cores = {d: core.replica(d) for d in set(mesh.slots)}
+        parts = split_rows(SCALE_PAIRS, mesh.size)
+
+        def stages(k):
+            a, b = parts[k]
+            dev_k = mesh.slots[k]
+
+            def fn():
+                stream = torch.cuda.current_stream(dev_k)
+                t0 = time.perf_counter()
+                pairs = PairBatch(PairBatch.rows(img_t, "BHWC", a, b),
+                                  PairBatch.rows(img_r, "BHWC", a, b), "BHWC", 0,
+                                  fv.display_photometry, rgb_to_y(fv.color_space), dev_k)
+                stream.synchronize()
+                t1 = time.perf_counter()
+                fv._score_pairs(cores[dev_k], pairs, "fused", None, None, dev_k, 1)
+                stream.synchronize()
+                return dict(upload_s=t1 - t0, score_s=time.perf_counter() - t1)
+            return fn
+        call = lambda: fv.predict_batch(img_t, img_r, dim_order="BHWC",  # noqa: E731
+                                        mesh=mesh if mesh.size > 1 else None)
+        call()
+        runs = [mesh.run([stages(k) for k in range(mesh.size)]) for _ in range(3)]
+        walls = warm_seconds(call)[0]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        top = sorted(avg, key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
+        device_us = [(e, getattr(e, "self_device_time_total", None)
+                      or getattr(e, "self_cuda_time_total", 0)) for e in avg]
+        top_dev = sorted(device_us, key=lambda x: x[1], reverse=True)[:10]
+        emit(dict(phase="mesh_profile", case=name, nvidia_smi=smi, cards=n_cards,
+                  slots=[str(d) for d in mesh.slots], pairs=SCALE_PAIRS,
+                  slot_stage_s_runs=runs, call_s_runs=walls,
+                  top_host_ops=[dict(name=e.key, calls=e.count,
+                                     self_cpu_ms=e.self_cpu_time_total / 1e3) for e in top],
+                  top_device_ops=[dict(name=e.key, calls=e.count, self_device_ms=us / 1e3)
+                                  for e, us in top_dev]))
+    return 0
+
+
+def mesh_phases(dev, smi, test_v, ref_v):
+    """Phase 8f.  Returns each case's launches (totals over the slots)."""
+    t0 = time.perf_counter()
+    mesh = make_mesh(["cuda:0", "cuda:0"])
+    launches = {}
+    launches["mesh_video"], q_one = mesh_video_phase(smi, test_v, ref_v, mesh)
+    torch.cuda.empty_cache()
+    launches.update(mesh_clip_cases(smi, test_v, ref_v, mesh))
+    launches.update(mesh_batch_cases(smi, mesh))
+    torch.cuda.empty_cache()
+    launches["mesh_checkpoint"] = mesh_checkpoint_case(smi, test_v, ref_v, mesh, q_one)
+    torch.cuda.empty_cache()
+    launches["mesh_processes"] = mesh_processes_case(smi)
+    if torch.cuda.device_count() > 1:
+        mesh_cards_case(smi, test_v, ref_v)
+    emit(dict(phase="mesh_seconds", seconds=time.perf_counter() - t0,
+              cards=torch.cuda.device_count()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    if "--mesh-worker" in sys.argv:
+        i = sys.argv.index("--mesh-worker")
+        return mesh_worker(int(sys.argv[i + 1]), int(sys.argv[i + 2]), sys.argv[i + 3])
     if "--time-kernels" in sys.argv:
         return time_kernels(dev)
     if "--time-upload" in sys.argv:
         return time_upload(dev)
+    if "--mesh-profile" in sys.argv:
+        return mesh_profile(dev)
     traced_only = "--traced" in sys.argv
     batch_only = "--batch" in sys.argv
     options_only = "--options" in sys.argv
     extras_only = "--extras" in sys.argv
+    mesh_only = "--mesh" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -2577,6 +3084,9 @@ def main():
         return 0
     if extras_only:
         extras_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
+        return 0
+    if mesh_only:
+        mesh_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
         return 0
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
@@ -3017,6 +3527,10 @@ def main():
 
     # 8e. checkpoint and resume, PU21-PSNR, the cores' key, update_device, the CLI
     extras = extras_phases(dev, smi, test_v, ref_v, q_yuv)
+    torch.cuda.empty_cache()
+
+    # 8f. a mesh of two slots on the card, two processes on the card
+    mesh = mesh_phases(dev, smi, test_v, ref_v)
 
     # 9. kernels line, result line
     print(smi, flush=True)
@@ -3032,6 +3546,8 @@ def main():
                                    for case, counts in options.items()}
         # launches in each case of phase 8e
         row["extras_launches"] = {case: counts[row["name"]] for case, counts in extras.items()}
+        # launches in each case of phase 8f, summed over the mesh's slots
+        row["mesh_launches"] = {case: counts[row["name"]] for case, counts in mesh.items()}
     emit(dict(kernels=summary))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))

@@ -17,6 +17,9 @@ analytic generator, in that order.  Files are read by
 OpenCV) and scored from the command line by ``fvvdp-torch``
 (``python -m fovvideovdp_tpu_torch.run_fvvdp``).  A streamed video can be
 checkpointed and resumed (``predict_video_source(checkpoint_path=...)``).
+``parallel`` scores over several cards (``predict(mesh=make_mesh())``,
+``predict_batch(mesh=...)``, ``fvvdp-torch --all-devices``) and several
+processes (``parallel.init_multihost``, through ``torch.distributed``).
 ``pu_psnr`` is the second metric, PU21-PSNR; ``preference``,
 ``hdrvdp_visualize`` and ``testbench`` hold the reference's extras.
 """

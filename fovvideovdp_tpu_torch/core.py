@@ -54,6 +54,14 @@ MASKING_MODELS = ("min_mutual_masking_perc_norm2", "contrast_difference",
                   "contrast_difference_perc_norm")
 
 
+def card(device) -> torch.device:
+    """``device`` with its index: the unindexed "cuda" is the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 class MetricCore:
     """Static per-resolution state (pyramid plan, per-band CSF tables,
     foveation maps) and the block scorers.  ``heatmap`` and
@@ -79,6 +87,7 @@ class MetricCore:
         self.params = params
         self.luts = tuple(luts)
         self.device = torch.device(device)
+        self._replicas: Dict = {}          # card -> this core built there (replica)
         self.peak_luminance = peak_luminance
         self.geometry = geometry
         self.foveated = bool(foveated)
@@ -266,8 +275,31 @@ class MetricCore:
         return tabs
 
     def drop_fov_tables(self) -> None:
-        """Free every cached fixed-gaze table set."""
+        """Free every cached fixed-gaze table set, this core's and its
+        replicas'."""
         self._fov_table_cache.clear()
+        for core in self._replicas.values():
+            core.drop_fov_tables()
+
+    def replica(self, device) -> "MetricCore":
+        """This core on ``device``: itself when ``device`` is its card, else
+        a core built there from the same arguments with the LUTs copied to
+        that card, made once and kept.  The slots of a mesh score with the
+        replica of their card; slots on one card share it, and with it the
+        card's fixed-gaze tables."""
+        dev = card(device)
+        if dev == card(self.device):
+            return self
+        if dev not in self._replicas:
+            luts = tuple({k: v.to(dev) if torch.is_tensor(v) else v for k, v in lut.items()}
+                         for lut in self.luts)
+            self._replicas[dev] = MetricCore(
+                self.plan, self.params, luts, dev, peak_luminance=self.peak_luminance,
+                geometry=self.geometry, foveated=self.foveated, heatmap=self.heatmap,
+                heatmap_dtype=self.heatmap_dtype, content_mapping=self.content_mapping,
+                ignore_boundary_pixels=self.ignore_boundary_pixels,
+                band_callback=self.band_callback)
+        return self._replicas[dev]
 
     # ------------------------------------------------------------------
     # moving gaze
@@ -278,6 +310,14 @@ class MetricCore:
         gaze = torch.as_tensor(gaze, dtype=torch.float32, device=self.device)
         return self.geometry.pix2view_direction(
             (self.plan.W, self.plan.H), gaze[:, 0] + 0.5, gaze[:, 1] + 0.5).T.contiguous()
+
+    def prepare_moving(self) -> None:
+        """Build the static band data that a gaze per frame reads, where the
+        moving-gaze route is the kernel's (slots that share this core read
+        it from their own threads)."""
+        if self.foveated and self.moving_route == "banded":
+            for bb in range(self.plan.height):
+                self._moving_band_data(bb)
 
     def _moving_band_data(self, bb: int, windowed: bool = True) -> Dict:
         """Static data of band ``bb`` for mov_score, as tensors on the
@@ -629,8 +669,9 @@ class MetricCore:
 
         A resumed run starts at frame ``start`` with ``carry`` (the fl-1
         frames before it, as the loop carries them) and ``Q``, whose frames
-        before ``start`` are already scored; ``after_block(pos, Q, carry_t,
-        carry_r)`` is called after each block, ``pos`` the frames scored."""
+        before ``start`` are already scored; ``after_block(pos, Q, carry)``
+        is called after each block, ``pos`` the frames scored and
+        ``carry()`` giving the fl-1 carried frames (carry_t, carry_r)."""
         fl = taps.shape[1]
         stream_idx = pad_idx[fl - 1:]  # frame feeding each output frame
         if Q is None:
@@ -651,7 +692,7 @@ class MetricCore:
             if keep is not None:
                 keep(heat)
             if after_block is not None:
-                after_block(pos + b, Q, carry_t, carry_r)
+                after_block(pos + b, Q, lambda: (carry_t, carry_r))
         return Q
 
     def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor,

@@ -4,7 +4,8 @@ Counterpart of ``fovvideovdp_tpu/fvvdp.py:68-213`` (constructor, config,
 display, cores), ``predict``, ``predict_video_source`` (image branch, the
 streaming loop, the ``do_temporal_channels=False`` ablation, foveation with
 a fixed or a per-frame gaze, heatmaps on the host or the device),
-``predict_batch`` on one card (``:953-1163``), the differentiable
+``predict_batch`` (``:953-1163``), scoring over a mesh of devices and
+processes (``mesh=``, ``:282-286,441-443,497-505,1014-1160``), the differentiable
 ``predict_traced`` and ``loss`` (``:1165-1242``), ``do_pooling_and_jods`` and
 ``write_features_to_json`` (``:1283-1295``), checkpoint and resume of the
 streaming loop (``:452-562,606-634``) and ``update_device``, with the
@@ -37,15 +38,18 @@ import torch
 import torch.utils.checkpoint
 
 from fovvideovdp_tpu_torch import utils
-from fovvideovdp_tpu_torch.core import MetricCore
+from fovvideovdp_tpu_torch.core import MetricCore, card
 from fovvideovdp_tpu_torch.csf import CSFCache
 from fovvideovdp_tpu_torch.display_model import (fvvdp_display_geometry,
                                                  fvvdp_display_photometry)
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan
-from fovvideovdp_tpu_torch.parallel.sharding import (make_batch_scorer,
-                                                     make_batch_video_scorer)
+from fovvideovdp_tpu_torch.parallel import multihost
+from fovvideovdp_tpu_torch.parallel.sharding import (make_batch_scorer, make_batch_video_scorer,
+                                                     make_mesh, replicas, score_video_mesh,
+                                                     shard_image_fn, split_rows,
+                                                     tables_on_cards)
 from fovvideovdp_tpu_torch.video_source import (PairBatch, channels_to_luminance,
                                                 fvvdp_video_source_array, reshuffle_dims,
                                                 resolve_device, rgb_to_y)
@@ -92,11 +96,6 @@ _MAX_CHUNK_FRAMES = 65535
 _IMAGE_STACK_BYTES = 8
 
 HEATMAP_TYPES = ("raw", "threshold", "supra-threshold", "monochromatic")
-
-
-def _unsupported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to fovvideovdp_tpu_torch "
-                               f"yet ({item} of ROADMAP.md)")
 
 
 def _memory_route(core: MetricCore, moving: bool) -> str:
@@ -237,14 +236,15 @@ class fvvdp:
     # ------------------------------------------------------------------
     def predict(self, test_cont, reference_cont, dim_order="BCFHW",
                 frames_per_second=0, fixation_point=None, mesh=None):
-        """Predict quality for arrays.  Returns (Q_JOD, stats)."""
-        if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 1")
+        """Predict quality for arrays.  Returns (Q_JOD, stats).  ``mesh``
+        (``parallel.make_mesh``): stream one video over several devices,
+        each block's frames split over the mesh's slots (see
+        ``predict_video_source``)."""
         test_vs = fvvdp_video_source_array(
             test_cont, reference_cont, frames_per_second, dim_order=dim_order,
             display_photometry=self.display_photometry,
             color_space_name=self.color_space, device=self.device)
-        return self.predict_video_source(test_vs, fixation_point=fixation_point)
+        return self.predict_video_source(test_vs, fixation_point=fixation_point, mesh=mesh)
 
     def _get_core(self, width: int, height: int, with_heatmap: bool = True) -> MetricCore:
         """The core of this resolution and of the attributes a core is built
@@ -275,24 +275,34 @@ class fvvdp:
                 band_callback=self.band_callback)
         return self._cores[key]
 
-    def _free_device_bytes(self):
-        """The card's free memory, with what the caching allocator holds but
-        no tensor uses; None on the CPU."""
-        if self.device.type != "cuda":
+    def _free_device_bytes(self, device=None):
+        """The free memory of the card (the metric's by default), with what
+        the caching allocator holds but no tensor uses; None on the CPU."""
+        dev = self.device if device is None else device
+        if dev.type != "cuda":
             return None
-        free, _ = torch.cuda.mem_get_info(self.device)
-        return free + torch.cuda.memory_reserved(self.device) \
-            - torch.cuda.memory_allocated(self.device)
+        free, _ = torch.cuda.mem_get_info(dev)
+        return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
 
-    def _frames_by_memory(self, height: int, width: int, bytes_per_px_frame: int):
-        """Frames that half of the free device memory holds; None on the CPU."""
-        free = self._free_device_bytes()
+    def _slot_free_bytes(self, device=None, slots: int = 1):
+        """The free memory of ``device``'s card (the metric's by default)
+        that each of the ``slots`` slots of a mesh on it may count on; None
+        on the CPU."""
+        free = self._free_device_bytes() if device is None else self._free_device_bytes(device)
+        return None if free is None else free / slots
+
+    def _frames_by_memory(self, height: int, width: int, bytes_per_px_frame: int,
+                          device=None, slots: int = 1):
+        """Frames that half of the free device memory holds (a slot's share
+        of it on ``device``, see ``_slot_free_bytes``); None on the CPU."""
+        free = self._slot_free_bytes(device, slots)
         if free is None:
             return None
         return int(_BLOCK_MEM_SHARE * free // (bytes_per_px_frame * height * width))
 
     def _pick_block_size(self, height: int, width: int, n_frames: int,
-                         route: str = "fused", extra_bytes: int = 0) -> int:
+                         route: str = "fused", extra_bytes: int = 0, device=None,
+                         slots: int = 1) -> int:
         """Frames per block: what half of the free device memory holds at
         the route's bytes per pixel-frame plus ``extra_bytes`` (the raw
         frames of the block a host-resident source prefetches).  Call it
@@ -300,14 +310,29 @@ class fvvdp:
         excludes them."""
         if self.block_frames is not None:
             return max(1, min(int(self.block_frames), n_frames))
-        by_mem = self._frames_by_memory(height, width,
-                                        _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes)
+        by_mem = self._frames_by_memory(
+            height, width, _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes, device, slots)
         if by_mem is None:
             return min(_MAX_BLOCK_FRAMES, n_frames)
         return max(1, min(by_mem, _MAX_BLOCK_FRAMES, n_frames))
 
+    def _pick_mesh_block(self, height: int, width: int, n_frames: int, mesh,
+                         route: str = "fused", extra_bytes: int = 0) -> int:
+        """Frames per block of a stream over a mesh, split over its slots:
+        ``block_frames`` rounded up to a multiple of the slot count (as the
+        JAX package rounds it, ``fovvideovdp_tpu/fvvdp.py:441-443``), else
+        each slot's share of its card's memory (the card's free memory
+        divided among the slots on it, as ``_pick_block_size`` sizes one
+        card's block) times the slot count."""
+        n = mesh.size
+        if self.block_frames is not None:
+            B = max(1, min(int(self.block_frames), n_frames))
+            return -(-B // n) * n
+        return n * min(self._pick_block_size(height, width, n_frames, route, extra_bytes, dev,
+                                             mesh.slots_on(dev)) for dev in set(mesh.slots))
+
     def _pick_chunk(self, height: int, width: int, n_items: int, item_frames: int,
-                    route: str, extra_bytes: int = 0) -> int:
+                    route: str, extra_bytes: int = 0, device=None, slots: int = 1) -> int:
         """Independent items per chunk: images, or whole clips whose padded
         windows hold ``item_frames`` frames.  As many as ``block_frames``
         frames hold, or half of the free device memory at the route's bytes
@@ -319,11 +344,11 @@ class fvvdp:
             frames = max(1, int(self.block_frames))
         else:
             per_px = _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes
-            frames = self._frames_by_memory(height, width, per_px)
+            frames = self._frames_by_memory(height, width, per_px, device, slots)
             if frames is None:
                 frames = _MAX_CHUNK_FRAMES
             elif frames < 1:
-                free = self._free_device_bytes()
+                free = self._slot_free_bytes(device, slots)
                 raise RuntimeError(
                     f"one {width}x{height} frame pair needs "
                     f"{per_px * height * width / 2**30:.2f} GiB on the {route!r} route "
@@ -370,10 +395,36 @@ class fvvdp:
         video's size and first frame, the configuration, the gaze) does not
         match is ignored; the file is removed on completion.  Refused with a
         heatmap and for a source without random access; an image and the
-        ``do_temporal_channels=False`` ablation score without one."""
-        if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 1")
+        ``do_temporal_channels=False`` ablation score without one.
+
+        ``mesh`` (``parallel.make_mesh``): each streamed block's frames are
+        split over the mesh's slots, each slot filtering and scoring its
+        frames with the fl-1 frames before them on its card (fixed-gaze
+        tables are built on every card; a gaze per frame is split with its
+        frames); ``Q_per_ch`` and the heatmap are gathered in frame order on
+        the metric's device (a ``device_heatmap`` too).  An array source's
+        slots each convert their own frames and halo on their own card;
+        another source's blocks are read on the metric's device and each
+        slot's frames copied from there.  A checkpoint works as without a
+        mesh.  A mesh of one device is no mesh.  A lone image is scored on
+        the mesh's first slot (``parallel.shard_image_fn``); a foveated
+        lone image and the ``do_temporal_channels=False`` ablation are
+        refused under a mesh, as the JAX package refuses them."""
         height, width, N_frames = vid_source.get_video_size()
+        if mesh is not None and mesh.size == 1:
+            mesh = None    # one device: the one-device path (fovvideovdp_tpu/fvvdp.py:283-286)
+        if mesh is not None and N_frames == 1 and self.foveated:
+            # refusing beats a silent fall back to one of the devices
+            raise RuntimeError(
+                "predict(mesh=...) does not shard single foveated "
+                "images; score it without a mesh, or shard many "
+                "foveated images with predict_batch(mesh=...)")
+        if mesh is not None and N_frames > 1 and not self.do_temporal_channels:
+            raise RuntimeError(
+                "predict(mesh=...) does not shard the "
+                "do_temporal_channels=False ablation path; run it "
+                "without a mesh (a silent single-device fallback would "
+                "waste the requested hardware)")
 
         if fixation_point is None:
             fixation_point = np.array([width // 2, height // 2])
@@ -385,6 +436,7 @@ class fvvdp:
                 f"point or at least one row per frame")
         fov_tables = None
         gaze = None                  # (N_frames, 2) tensor: the moving route
+        point = None                 # a fixed fixation point: tables
         core = self._get_core(width, height)
         if self.foveated and fixation_point.shape == (2,) \
                 and self.content_mapping is not None:
@@ -398,8 +450,9 @@ class fvvdp:
                 core.drop_fov_tables()
                 gaze = torch.as_tensor(np.array(fixation_point[:N_frames]), device=self.device)
             elif fixation_point.shape == (2,):
-                fov_tables = core.fov_tables((float(fixation_point[0]),
-                                              float(fixation_point[1])))
+                point = (float(fixation_point[0]), float(fixation_point[1]))
+                # under a mesh, built on each card below
+                fov_tables = core.fov_tables(point) if mesh is None else None
             else:
                 raise ValueError(
                     f"fixation_point must be one (x, y) point or an (N, 2) array of "
@@ -427,7 +480,10 @@ class fvvdp:
                             "path only; ignored for this input")
         if N_frames == 1:
             t, r = block(0, 1)
-            Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
+            if mesh is not None:
+                Q_per_ch, heat = shard_image_fn(core, mesh)(t[0], r[0])
+            else:
+                Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
             keep(heat)
         elif not self.do_temporal_channels:
             # the ablation (fovvideovdp_tpu/fvvdp.py:389-430): every frame
@@ -450,15 +506,29 @@ class fvvdp:
             # the raw frames of the next block, which a host-resident source
             # prefetches onto the card while this one is scored
             staged = -(-vid_source.host_block_bytes(1) // (height * width))
-            B = self._pick_block_size(height, width, N_frames, route, staged)
             resume = {}
             if checkpoint_path:
                 resume = self._checkpointing(vid_source, checkpoint_path, checkpoint_every,
                                              core, fl, fps, fixation_point)
-            Q_per_ch = core.score_video(
-                block, lambda idx: on_device(vid_source.get_indexed_luminance_block(idx)),
-                N_frames, taps, temporal_ops.padding_indices(N_frames, fl, self.temp_padding),
-                B, fov_tables, gaze, keep, **resume)
+            def indexed(idx):
+                return on_device(vid_source.get_indexed_luminance_block(idx))
+
+            pad_idx = temporal_ops.padding_indices(N_frames, fl, self.temp_padding)
+            if mesh is None:
+                B = self._pick_block_size(height, width, N_frames, route, staged)
+                Q_per_ch = core.score_video(block, indexed, N_frames, taps, pad_idx, B,
+                                            fov_tables, gaze, keep, **resume)
+            else:
+                tables = None if point is None else tables_on_cards(core, mesh, point)
+                frames_at = None
+                if vid_source.luminance_at is not None:
+                    def frames_at(idx, dev):
+                        return tuple(self._encode(x.to(dev, torch.float32))
+                                     for x in vid_source.luminance_at(idx, dev))
+                B = self._pick_mesh_block(height, width, N_frames, mesh, route, staged)
+                Q_per_ch = score_video_mesh(mesh, core, block, indexed, N_frames, taps, pad_idx,
+                                            B, tables, gaze, keep, frames_at=frames_at,
+                                            **resume)
             if checkpoint_path and os.path.isfile(checkpoint_path):
                 os.remove(checkpoint_path)
 
@@ -523,10 +593,10 @@ class fvvdp:
                 torch.as_tensor(c, device=self.device).contiguous() for c in (carry_t, carry_r)))
         blocks = [0]
 
-        def after_block(pos, Q, carry_t, carry_r):
+        def after_block(pos, Q, carry):
             blocks[0] += 1
             if pos < N_frames and blocks[0] % max(1, every) == 0:
-                self._save_checkpoint(path, fingerprint, pos, Q, carry_t, carry_r)
+                self._save_checkpoint(path, fingerprint, pos, Q, *carry())
         return dict(resume, after_block=after_block)
 
     @staticmethod
@@ -581,9 +651,9 @@ class fvvdp:
     @torch.no_grad()
     def predict_batch(self, test_conts, reference_conts, dim_order="BCFHW",
                       frames_per_second=0, mesh=None, fixation_point=None):
-        """Score a batch of N test/reference pairs on the card, a chunk of
-        pairs at a time (``fovvideovdp_tpu/fvvdp.py:953-1163``, which
-        replaces the reference's job farming, ``benchmark_cluster.sh``).
+        """Score a batch of N test/reference pairs, a chunk of pairs at a
+        time (``fovvideovdp_tpu/fvvdp.py:953-1163``, which replaces the
+        reference's job farming, ``benchmark_cluster.sh``).
 
         Inputs follow ``predict``'s conventions with a batch axis: any
         ``dim_order`` that holds "B".  A batch on the host goes up whole
@@ -593,16 +663,27 @@ class fvvdp:
         time, or streamed one by one when a clip does not fit the card.
         Chunks are sized from the card's free memory.  Foveated gaze: one
         (x, y) ``fixation_point`` shared by all pairs (the default: the
-        centre; its per-pixel tables are built once), (N, 2) per pair, or
-        (N, F, 2) per frame (both on the moving-gaze route).  As in the JAX
-        package, ``do_temporal_channels`` is not read, and no heatmap is
-        made.  ``mesh`` (several cards) is not ported yet.
+        centre; its per-pixel tables are built once per card), (N, 2) per
+        pair, or (N, F, 2) per frame (both on the moving-gaze route).  As in
+        the JAX package, ``do_temporal_channels`` is not read, and no
+        heatmap is made.
+
+        ``mesh`` (``parallel.make_mesh``): the pairs are split in contiguous
+        row blocks over the mesh's slots; each slot's rows go from the
+        caller straight to its card and are scored there, and the results
+        are gathered in pair order.  ``mesh=None`` follows the JAX package
+        ("all devices by default") where the metric's device is the
+        unindexed "cuda": every visible card (this process's cards after
+        ``parallel.init_multihost``); a metric built for "cuda:N" or "cpu"
+        keeps its one device.  In a run of several processes
+        (``parallel.init_multihost``) every process passes its own pairs,
+        the same count on each, and gets back its own rows, the results
+        gathered over the process group first; ``stats["n_processes"]``
+        counts them.
 
         Returns (Q_JOD (N,) np.ndarray, stats): "width", "height",
         "N_frames", "N_pairs", "frames_per_second", and for clips
         "Q_per_ch" (n_bands, 2, N, F)."""
-        if mesh is not None:
-            raise _unsupported("mesh", "queue 1 item 1")
         gaze_mode = None  # None | "tables" (one shared point) | "per_pair"
         if self.foveated:
             if self.content_mapping is not None:
@@ -618,10 +699,22 @@ class fvvdp:
                                    "(N, 2) per pair, or (N, F, 2) per frame")
         if "B" not in dim_order.upper():
             raise RuntimeError("predict_batch needs a batch axis; include 'B' in dim_order")
-        pairs = PairBatch(test_conts, reference_conts, dim_order, frames_per_second,
-                          self.display_photometry, rgb_to_y(self.color_space), self.device,
-                          encode=self._encode)
-        N, _, F, H, W = pairs.shape
+        N, _, F, H, W = PairBatch.batch_shape(test_conts, reference_conts, dim_order,
+                                              frames_per_second)
+        n_proc = multihost.process_count()
+        if n_proc > 1:
+            # unequal counts would misplace the gathered rows: checked first,
+            # in the JAX package's words (fovvideovdp_tpu/fvvdp.py:1047-1057)
+            multihost.local_batch_to_global(N)
+        if mesh is None and self.device.type == "cuda" and self.device.index is None:
+            mesh = make_mesh()
+        if mesh is not None and mesh.size == 1 and card(mesh.slots[0]) == card(self.device):
+            mesh = None
+        pairs = None
+        if mesh is None:
+            pairs = PairBatch(test_conts, reference_conts, dim_order, frames_per_second,
+                              self.display_photometry, rgb_to_y(self.color_space),
+                              self.device, encode=self._encode)
 
         core = self._get_core(W, H, with_heatmap=False)
         route = _memory_route(core, gaze_mode == "per_pair")
@@ -629,7 +722,9 @@ class fvvdp:
         if gaze_mode == "tables":
             if fixation_point is None:
                 fp = np.asarray([W // 2, H // 2], dtype=np.float32)
-            fov_tables = core.fov_tables((float(fp[0]), float(fp[1])))
+            point = (float(fp[0]), float(fp[1]))
+            fov_tables = core.fov_tables(point) if mesh is None \
+                else tables_on_cards(core, mesh, point)
         elif gaze_mode == "per_pair":
             if fp.shape[0] != N:
                 raise RuntimeError(f"fixation_point has {fp.shape[0]} rows for {N} pairs")
@@ -639,20 +734,74 @@ class fvvdp:
             gaze = torch.as_tensor(np.array(gaze_b, dtype=np.float32), device=self.device)
         stats = {"width": W, "height": H, "N_frames": F, "N_pairs": N,
                  "frames_per_second": frames_per_second}
-        if F == 1:
-            chunk = self._pick_chunk(H, W, N, 1, route, _IMAGE_STACK_BYTES)
-            jods = make_batch_scorer(core, pairs, chunk, self.parameters, fov_tables,
-                                     None if gaze is None else gaze[:, 0])
+        if mesh is None:
+            jods, Q_per_ch = self._score_pairs(core, pairs, route, fov_tables, gaze)
         else:
-            fl = temporal_ops.filter_len_for_fps(frames_per_second)
-            filt = temporal_ops.temporal_filters(frames_per_second, fl,
-                                                 self.sustained_sigma, self.sustained_beta)
-            chunk = self._pick_chunk(H, W, N, F + fl - 1, route)
-            block = 0 if chunk else self._pick_block_size(H, W, F, route)
-            jods, Q_per_ch = make_batch_video_scorer(core, pairs, filt, self.parameters, chunk,
-                                                     block, self.temp_padding, fov_tables, gaze)
+            jods, Q_per_ch = self._score_pairs_on_mesh(
+                mesh, core, test_conts, reference_conts, dim_order, frames_per_second, N, route,
+                fov_tables, gaze)
+        jods = jods.cpu()
+        if n_proc > 1:
+            # every process's rows gathered over the group, then this one's
+            rows = torch.as_tensor(multihost.local_row_positions(N * n_proc))
+            jods = multihost.replicate_to_hosts(jods)[rows]
+            if Q_per_ch is not None:
+                Q_per_ch = multihost.replicate_to_hosts(Q_per_ch, axis=2)[:, :, rows]
+            stats["n_processes"] = n_proc
+        if Q_per_ch is not None:
             stats["Q_per_ch"] = Q_per_ch.cpu().numpy()
-        return jods.cpu().numpy(), stats
+        return jods.numpy(), stats
+
+    def _score_pairs(self, core: MetricCore, pairs, route: str, fov_tables, gaze,
+                     device=None, slots: int = 1):
+        """(JODs (N,), Q_per_ch (n_bands, 2, N, F) of clips or None) of the
+        pairs of ``pairs`` on ``core``'s device, chunks sized from that
+        card's memory shared by ``slots`` slots."""
+        N, _, F, H, W = pairs.shape
+        mem = dict(device=device, slots=slots)
+        if F == 1:
+            chunk = self._pick_chunk(H, W, N, 1, route, _IMAGE_STACK_BYTES, **mem)
+            return make_batch_scorer(core, pairs, chunk, self.parameters, fov_tables,
+                                     None if gaze is None else gaze[:, 0]), None
+        fps = pairs.fps
+        fl = temporal_ops.filter_len_for_fps(fps)
+        filt = temporal_ops.temporal_filters(fps, fl, self.sustained_sigma, self.sustained_beta)
+        chunk = self._pick_chunk(H, W, N, F + fl - 1, route, **mem)
+        block = 0 if chunk else self._pick_block_size(H, W, F, route, **mem)
+        return make_batch_video_scorer(core, pairs, filt, self.parameters, chunk, block,
+                                       self.temp_padding, fov_tables, gaze)
+
+    def _score_pairs_on_mesh(self, mesh, core: MetricCore, test, reference, dim_order: str,
+                             fps, N: int, route: str, tables, gaze):
+        """``_score_pairs`` over a mesh: slot k takes rows
+        ``split_rows(N, mesh.size)[k]``, builds its own ``PairBatch`` of them
+        on its card (so neither the raw batch nor its luminance is ever
+        whole on one card) and scores them with its card's replica of
+        ``core``; the results are gathered on the metric's device in pair
+        order.  ``tables``: per card (``tables_on_cards``)."""
+        parts = split_rows(N, mesh.size)
+        cores = replicas(core, mesh, gaze is not None)
+        rgb2y = rgb_to_y(self.color_space)
+
+        def slot_fn(k):
+            a, b = parts[k]
+            dev = mesh.slots[k]
+
+            def fn():
+                pairs = PairBatch(PairBatch.rows(test, dim_order, a, b),
+                                  PairBatch.rows(reference, dim_order, a, b), dim_order, fps,
+                                  self.display_photometry, rgb2y, dev, encode=self._encode)
+                return self._score_pairs(cores[dev], pairs, route,
+                                         None if tables is None else tables[dev],
+                                         None if gaze is None else gaze[a:b].to(dev),
+                                         dev, mesh.slots_on(dev))
+            return fn if b > a else None
+
+        done = [o for o in mesh.run([slot_fn(k) for k in range(mesh.size)]) if o is not None]
+        jods = torch.cat([j.to(self.device) for j, _ in done])
+        if done[0][1] is None:
+            return jods, None
+        return jods, torch.cat([q.to(self.device) for _, q in done], dim=2)
 
     # ------------------------------------------------------------------
     # differentiable path (the metric as a training loss)

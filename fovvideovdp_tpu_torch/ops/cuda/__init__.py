@@ -7,7 +7,7 @@ are built from ``csrc/`` at first use (see ``_lib``); importing this
 package builds nothing.
 """
 from fovvideovdp_tpu_torch.ops.cuda._lib import (KERNELS, build,
-                                                  launch_counts,
+                                                  launch_counts, launch_scope,
                                                   reset_launch_counts)
 
-__all__ = ["KERNELS", "build", "launch_counts", "reset_launch_counts"]
+__all__ = ["KERNELS", "build", "launch_counts", "launch_scope", "reset_launch_counts"]

@@ -12,9 +12,14 @@ non-zero return from a kernel's C function raises; nothing falls back.
 
 Every wrapper adds one to its launch counter when it launches its kernel
 (and nowhere else), so a run can show that it went through the kernels.
+The counters are shared by every thread and guarded by a lock: the slots
+of a mesh (``parallel.sharding.Mesh``) launch from threads of their own.
+A launch made under :func:`launch_scope` is also counted under that
+scope's key, so a mesh run can show each slot's launches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -77,23 +82,49 @@ _SIGNATURES = {
 }
 
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}
+_scoped: Dict[object, Dict[str, int]] = {}
+_count_lock = threading.Lock()
+_scope = threading.local()
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+_fns_lock = threading.Lock()
 _build_lock = threading.Lock()
 build_seconds: Optional[float] = None
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return dict(_counts)
+def launch_counts(scope=None) -> Dict[str, int]:
+    """Kernel launches per wrapper since the last reset: all of them, or
+    those made under ``launch_scope(scope)``."""
+    with _count_lock:
+        if scope is None:
+            return dict(_counts)
+        return dict(_scoped.get(scope, {k: 0 for k in KERNELS}))
 
 
 def reset_launch_counts() -> None:
-    for k in _counts:
-        _counts[k] = 0
+    with _count_lock:
+        for k in _counts:
+            _counts[k] = 0
+        _scoped.clear()
+
+
+@contextlib.contextmanager
+def launch_scope(key):
+    """Count the launches this thread makes inside the block under ``key``
+    too (besides the totals)."""
+    outer = getattr(_scope, "key", None)
+    _scope.key = key
+    try:
+        yield
+    finally:
+        _scope.key = outer
 
 
 def count_launch(name: str) -> None:
-    _counts[name] += 1
+    key = getattr(_scope, "key", None)
+    with _count_lock:
+        _counts[name] += 1
+        if key is not None:
+            _scoped.setdefault(key, {k: 0 for k in KERNELS})[name] += 1
 
 
 def _sources_hash() -> str:
@@ -173,12 +204,15 @@ def kernel_fn(name: str):
     """The ctypes entry point of one kernel, building the libraries first."""
     fn = _fns.get(name)
     if fn is None:
-        stem, symbol, argtypes = _SIGNATURES[name]
-        lib = ctypes.CDLL(build()[stem])
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
+        paths = build()
+        with _fns_lock:
+            fn = _fns.get(name)
+            if fn is None:
+                stem, symbol, argtypes = _SIGNATURES[name]
+                fn = getattr(ctypes.CDLL(paths[stem]), symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _fns[name] = fn
     return fn
 
 

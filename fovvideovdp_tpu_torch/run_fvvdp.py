@@ -6,8 +6,10 @@ wildcard expansion, display listing with ``--display ?``, heatmaps written
 as PNG (cv2 or PIL) or video (the ffmpeg binary, else cv2), the features
 JSON, ``--metrics fvvdp pu-psnr``, ``--checkpoint``.  It runs on the CUDA
 card ``--gpu N`` unless ``--device cpu`` asks for the plain PyTorch versions
-on the CPU.  ``--all-devices`` (several cards) is not ported yet: it raises
-``NotImplementedError`` naming its ROADMAP item.
+on the CPU.  ``--all-devices`` streams each pair over a mesh of every
+visible card (``parallel.make_mesh()``; with ``--device cpu``, a mesh of
+``CPU_MESH_SLOTS`` slots of the CPU, which drives the mesh's code where
+there is no card).
 """
 from __future__ import annotations
 
@@ -25,8 +27,11 @@ import fovvideovdp_tpu_torch as pkg
 from fovvideovdp_tpu_torch import utils
 from fovvideovdp_tpu_torch.display_model import (fvvdp_display_geometry,
                                                  fvvdp_display_photometry)
-from fovvideovdp_tpu_torch.fvvdp import _unsupported
+from fovvideovdp_tpu_torch.parallel import make_mesh
 from fovvideovdp_tpu_torch.video_source_file import fvvdp_video_source_file
+
+# slots of the CPU mesh that --all-devices builds with --device cpu
+CPU_MESH_SLOTS = 2
 
 
 def expand_wildcards(filestrs):
@@ -150,7 +155,8 @@ def parse_args(argv=None):
     parser.add_argument("--block-frames", type=int, default=None,
                         help="frames per block (default: from the card's free memory)")
     parser.add_argument("--all-devices", action="store_true", default=False,
-                        help="shard video frames over every visible device")
+                        help="shard video frames over every visible card (with "
+                             f"--device cpu: {CPU_MESH_SLOTS} slots of the CPU)")
     parser.add_argument("--checkpoint", type=str, default=None,
                         help="path for streaming-state checkpoints; a killed "
                              "long-video job resumes where it stopped")
@@ -170,9 +176,6 @@ def main(argv=None):
     if args.display == "?":
         fvvdp_display_photometry.list_displays()
         return 0
-
-    if args.all_devices:
-        raise _unsupported("--all-devices", "queue 1 item 1")
 
     if args.test is None or args.ref is None:
         logging.error("Paths to both test and reference content needs to be specified.")
@@ -230,6 +233,11 @@ def main(argv=None):
     out_dir = args.output_dir or "."
     os.makedirs(out_dir, exist_ok=True)
 
+    mesh = None
+    if args.all_devices:
+        mesh = make_mesh() if args.device == "cuda" else make_mesh(["cpu"] * CPU_MESH_SLOTS)
+        logging.info(f"Sharding over {mesh.devices.size} device(s)")
+
     for kk in range(max(N_test, N_ref)):
         test_file = args.test[min(kk, N_test - 1)]
         ref_file = args.ref[min(kk, N_ref - 1)]
@@ -247,7 +255,7 @@ def main(argv=None):
                 ckpt = args.checkpoint
                 if ckpt and max(N_test, N_ref) > 1:
                     ckpt = f"{ckpt}.{kk}"  # one state file per pair
-                Q_pred, stats = mm.predict_video_source(vs, checkpoint_path=ckpt)
+                Q_pred, stats = mm.predict_video_source(vs, mesh=mesh, checkpoint_path=ckpt)
             else:
                 Q_pred, stats = mm.predict_video_source(vs)
             if args.quiet:

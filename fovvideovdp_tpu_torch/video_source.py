@@ -143,6 +143,10 @@ class fvvdp_video_source(ABC):
 
     # the staging and prefetch of a source whose raw frames stay off the card
     _blocks: Optional["_HostBlocks"] = None
+    # luminance_at(indices, device): the frames at indices converted on any
+    # device, safe from several threads at once (the slots of a mesh); None
+    # where the source reads its blocks in order on its own device
+    luminance_at: Optional[Callable] = None
 
     @abstractmethod
     def get_video_size(self) -> Tuple[int, int, int]:
@@ -471,6 +475,22 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
     def get_reference_frame(self, frame, device=None):
         return self._lum(self._raw(frame, 1)[1])[None, None]
 
+    def luminance_at(self, indices, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(test, reference) luminance of the frames at ``indices``, their
+        raw frames copied to ``device`` and converted there.  It reads the
+        raw pair and changes nothing (the host-resident staging is not
+        used), so the slots of a mesh call it from their threads at once,
+        each converting its own frames on its own card."""
+        idx = np.asarray(indices, dtype=np.int64)
+        out = []
+        for x in (self._t, self._r):
+            if is_run(idx):
+                raw = x[:, int(idx[0]):int(idx[-1]) + 1]
+            else:
+                raw = x.index_select(1, torch.as_tensor(idx, device=x.device))
+            out.append(self._lum(raw.to(device)))
+        return out[0], out[1]
+
 
 class fvvdp_video_source_packed_array(fvvdp_video_source_dm):
     """Flat-packed YUV or RGB frames behind a 7-int header, for batch and
@@ -560,16 +580,8 @@ class PairBatch:
                  encode=None):
         t, r = _as_stored(test), _as_stored(reference)
         dims = dim_order.upper()
-        shape = tuple(reshuffle_dims(t, dims, "BCFHW").shape)
-        if shape != tuple(reshuffle_dims(r, dims, "BCFHW").shape):
-            raise RuntimeError("Test and reference batches must have the same shape")
-        N, C, F, H, W = shape
-        if F > 1 and fps <= 0:
-            raise RuntimeError(
-                "When passing video sequences, you must set 'frames_per_second' parameter")
-        if C not in (1, 3):
-            raise RuntimeError("The content must have either 1 or 3 colour channels.")
-        self.shape = shape
+        self.shape = self.batch_shape(t, r, dims, fps)
+        self.fps = fps
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # "cuda" is the current card, the device its tensors report
@@ -583,6 +595,31 @@ class PairBatch:
             t, r = _upload_bcfhw(t, dims, self.device), _upload_bcfhw(r, dims, self.device)
             self._dims = "BCFHW"
         self._t, self._r = t, r
+
+    @staticmethod
+    def batch_shape(test, reference, dim_order: str, fps) -> Tuple[int, ...]:
+        """(N, C, F, H, W) of a batch, checked as ``predict_batch`` checks it."""
+        shape, shape_r = (tuple(reshuffle_dims(torch.empty(tuple(np.shape(x)), device="meta"),
+                                               dim_order, "BCFHW").shape)
+                          for x in (test, reference))
+        if shape != shape_r:
+            raise RuntimeError("Test and reference batches must have the same shape")
+        N, C, F, H, W = shape
+        if F > 1 and fps <= 0:
+            raise RuntimeError(
+                "When passing video sequences, you must set 'frames_per_second' parameter")
+        if C not in (1, 3):
+            raise RuntimeError("The content must have either 1 or 3 colour channels.")
+        return shape
+
+    @staticmethod
+    def rows(x, dim_order: str, start: int, stop: int):
+        """Pairs start..stop-1 of a batch (array or tensor) in its own dim
+        order, a view where the input allows one."""
+        ax = dim_order.upper().index("B")
+        if isinstance(x, torch.Tensor):
+            return x.narrow(ax, start, stop - start)
+        return np.asarray(x)[(slice(None),) * ax + (slice(start, stop),)]
 
     def _raw(self, x: torch.Tensor, start: int, count: int, frames) -> torch.Tensor:
         """Raw pairs start..start+count-1 of x, at ``frames``, as (count, C,

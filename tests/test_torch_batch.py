@@ -201,10 +201,15 @@ def test_predict_batch_refuses_what_jax_refuses(case):
 
 
 def test_predict_batch_mesh_names_its_item():
-    # several cards: ROADMAP queue 1 item 1
+    """``mesh`` once raised here, naming ROADMAP queue 1 item 1; now the
+    pairs split over a mesh of two CPU slots score as they do on one
+    device (tests/test_torch_parallel.py holds the mesh against JAX)."""
+    from fovvideovdp_tpu_torch.parallel import make_mesh
+    tst, ref = _pairs(9, (N, H, W, 3))
     fv = fv_port.fvvdp(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 1\b"):
-        fv.predict_batch(_BAD, _BAD, dim_order="BHWC", mesh=object())
+    jods, _ = fv.predict_batch(tst, ref, dim_order="BHWC")
+    jods_mesh, _ = fv.predict_batch(tst, ref, dim_order="BHWC", mesh=make_mesh(["cpu"] * 2))
+    np.testing.assert_allclose(jods_mesh, jods, rtol=1e-6, atol=0)
 
 
 def test_a_pair_that_cannot_fit_raises(monkeypatch):

@@ -152,21 +152,19 @@ def _jax_cli(capsys, *args):
     return rc, capsys.readouterr().out.strip().splitlines()
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--metrics", "pu-psnr"], None), (["--metrics", "fvvdp", "pu-psnr"], None),
-    (["--checkpoint", "state.ckpt"], None), (["--all-devices"], "item 1")])
-def test_unported_flags_raise_and_name_their_item(capsys, image_pair, tmp_path, flags, item):
+@pytest.mark.parametrize("flags", [
+    ["--metrics", "pu-psnr"], ["--metrics", "fvvdp", "pu-psnr"], ["--checkpoint", "state.ckpt"],
+    ["--all-devices"]])
+def test_unported_flags_raise_and_name_their_item(capsys, image_pair, tmp_path, flags):
     """``--metrics pu-psnr`` and ``--checkpoint`` once raised here, naming
-    ROADMAP queue 1 item 5; now they print what the JAX CLI prints on the
-    same pair (on an image, ``--checkpoint`` is ignored with a warning).
-    ``--all-devices`` (several cards) still raises and names its item."""
+    ROADMAP queue 1 item 5, and ``--all-devices`` naming item 1; now they
+    print what the JAX CLI prints on the same pair (on an image,
+    ``--checkpoint`` is ignored with a warning; ``--all-devices`` scores
+    the pair on a mesh of CPU slots, the JAX CLI on its 8 virtual CPU
+    devices)."""
     tst, ref = image_pair
     flags = [str(tmp_path / f) if f.endswith(".ckpt") else f for f in flags]
     args = ["--test", tst, "--ref", ref] + flags
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=rf"{item}\b"):
-            run_fvvdp.main(args + ["--device", "cpu"])
-        return
     rc, lines = _cli(capsys, *args)
     rc_j, lines_j = _jax_cli(capsys, *args)
     assert rc == rc_j == 0 and lines == lines_j
@@ -254,14 +252,19 @@ def test_unported_options_name_their_current_item(kwargs):
 
 
 def test_unported_call_options_name_their_current_item(image_pair, tmp_path):
-    """``mesh`` (several cards) raises and names its item; a checkpoint
+    """``mesh`` once raised naming item 1; now an image on a mesh of CPU
+    slots scores as without one, and only its row split over a 'space'
+    axis > 1 raises, naming its own item (queue 1 item 2).  A checkpoint
     path, which once raised naming item 5, is ignored for an image, as the
     JAX package ignores it."""
+    from fovvideovdp_tpu_torch.parallel import make_mesh
     fv = port_fvvdp(device="cpu")
-    arr = np.zeros((8, 8, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match=r"item 1\b"):
-        fv.predict(arr, arr, dim_order="HWC", mesh=object())
     vs = run_fvvdp.fvvdp_video_source_file(*image_pair, device="cpu")
+    q_one, s_one = fv.predict_video_source(vs)
+    q_mesh, s_mesh = fv.predict_video_source(vs, mesh=make_mesh(["cpu"] * 2))
+    assert q_mesh == q_one and np.array_equal(s_mesh["Q_per_ch"], s_one["Q_per_ch"])
+    with pytest.raises(NotImplementedError, match=r"queue 1 item 2\b"):
+        fv.predict_video_source(vs, mesh=make_mesh(["cpu"] * 2, data_parallel=1))
     ckpt = str(tmp_path / "state.ckpt")
     q, _ = fv.predict_video_source(vs, checkpoint_path=ckpt)
     assert q == fv.predict_video_source(vs)[0] and not os.path.exists(ckpt)

@@ -155,13 +155,18 @@ def test_constructor_rejects_bad_values(kwargs, error):
 
 
 def test_unsupported_call_options_raise(tmp_path):
-    """``mesh`` (several cards) raises naming its ROADMAP item; a per-frame
-    fixation point scores; a checkpoint path, which once raised here,
-    scores as the run without one and leaves no file."""
+    """``mesh``, which once raised here naming its ROADMAP item, streams
+    the video over a mesh of CPU slots as one device scores it; a
+    per-frame fixation point scores; a checkpoint path, which once raised
+    here, scores as the run without one and leaves no file."""
+    from fovvideovdp_tpu_torch.parallel import make_mesh
     fv = fvvdp(device="cpu")
     test, ref = _tiny_video()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fv.predict(test, ref, dim_order="HWCF", frames_per_second=30, mesh=object())
+    q_one, s_one = fv.predict(test, ref, dim_order="HWCF", frames_per_second=30)
+    q_mesh, s_mesh = fv.predict(test, ref, dim_order="HWCF", frames_per_second=30,
+                                mesh=make_mesh(["cpu"] * 3))
+    np.testing.assert_allclose(q_mesh, q_one, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(s_mesh["Q_per_ch"], s_one["Q_per_ch"], rtol=1e-6, atol=0)
     # a per-frame fixation point (a moving gaze) scores, like the same point held
     fov = fvvdp(device="cpu", foveated=True)
     kw = dict(dim_order="HWCF", frames_per_second=30)
