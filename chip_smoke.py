@@ -153,6 +153,25 @@ Phases, each raising on failure:
      both killed on failure or after their own time limit); with more than
      one card visible, mesh_cards (the clip and 256 pairs on 1, 2 and 4
      cards: JODs, fps, each card's peak);
+  8g. a lone image split by rows over a mesh's 'space' axis
+     (make_mesh([...], data_parallel=1), parallel.shard_image_fn): the 4K
+     image (the clip's first frame pair); space_kernel (expand_score2 with a
+     row range against its plain version within 1e-4 relative: each half of
+     a two-slot split, a strip from an odd row, the last partial tile of
+     levels 1 and 6, an empty strip that launches nothing, the odd-row strip
+     on the scalar arm; the halves' tile partials laid end to end against
+     the whole level's, and their sum by sum_tile_partials against its sums,
+     both bit for bit); space_image (2 and 3 slots on cuda:0, and 4 on the
+     default route, whose fourth slot has no rows at the coarsest level, on
+     the default route, per-channel LUTs, threshold and raw heatmaps, the
+     "global" and "simple" adaptations, ignored boundary pixels and log
+     contrast, each against the same metric without a mesh: the default
+     route bit for bit, the others within 1e-6 relative, heatmaps within
+     2e-3; each slot's launches exact: the reduce at every level, the
+     route's level kernels only where its strip has rows, a slot without
+     rows nothing; the default route's warm walls in turns); with more than
+     one card visible, space_cards (the 4K image and a 7680x4320 one on
+     'space' = 1, 2 and 4 cards: JODs, warm walls, each card's peak);
   9. the kernels line, then the result line.
 
 Every path has its own expectation of which kernels must launch and which
@@ -202,8 +221,13 @@ key, update_device, the CLI's extras), and prints no result line;
 
     python3 chip_smoke.py --mesh
 
-runs phases 1, 2 and 8f only (a mesh and processes; on a machine with four
-cards, mesh_cards too), and prints no result line.
+runs phases 1, 2, 8f and 8g (a mesh and processes, a lone image over
+'space'; on a machine with four cards, mesh_cards and space_cards too), and
+prints no result line.
+
+    python3 chip_smoke.py --space
+
+runs phases 1, 2 and 8g only, and prints no result line.
 
     python3 chip_smoke.py --mesh-profile
 
@@ -3031,6 +3055,260 @@ def mesh_phases(dev, smi, test_v, ref_v):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 8g. a lone image split by rows over a mesh's 'space' axis
+# ---------------------------------------------------------------------------
+SPACE_TOL = 1e-6           # relative, JOD and Q_per_ch, the routes other than the default
+SPACE_HEAT_TOL = 2e-3      # the heatmap, absolute
+SPACE_KERNEL_TOL = 1e-4    # expand_score2 with a row range against its plain version
+# route: (metric options, per-channel LUTs, the kernels each slot launches once
+# per level where its strip has rows, beside the reduce at every level)
+SPACE_ROUTES = {
+    "default": (dict(), False, ("expand_score2",)),
+    "per_channel_luts": (dict(), True, ("expand_contrast", "band_score")),
+    "heatmap_threshold": (dict(heatmap="threshold"), False, ("expand_contrast",)),
+    "heatmap_raw": (dict(heatmap="raw"), False, ("expand_contrast",)),
+    "local_adapt_global": (dict(parameter_overrides={"local_adapt": "global"}), False, ()),
+    "local_adapt_simple": (dict(parameter_overrides={"local_adapt": "simple"}), False, ()),
+    "ignore_boundary_pixels": (dict(ignore_boundary_pixels=True), False, ("expand_contrast",)),
+    "log_contrast": (dict(parameter_overrides={"contrast": "log"}), False, ()),
+    # the blur of the masking signal reaches rows beyond a strip
+    "pu_dilate": (dict(parameter_overrides={"pu_dilate": 1.0}), False, ("expand_contrast",)),
+    "masking_contrast_difference": (dict(parameter_overrides={
+        "masking_model": "contrast_difference"}), False, ("expand_contrast",)),
+    "masking_perc_norm": (dict(parameter_overrides={
+        "masking_model": "contrast_difference_perc_norm"}), False, ("expand_contrast",)),
+}
+# slots on cuda:0: two, three (uneven strips) and, on the default route,
+# four (the coarsest 4K level has three tile rows: the fourth slot has none)
+SPACE_SLOTS = (2, 3, 4)
+
+
+def image_strip(h, k, n):
+    """parallel.sharding.image_strip, imported here so that --time-kernels
+    can still load packages older than it (--package-root)."""
+    from fovvideovdp_tpu_torch.parallel.sharding import image_strip as strip
+    return strip(h, k, n)
+
+
+def rows_per_level(plan, k, n):
+    """How many scored levels part k of n has rows at (image_strip)."""
+    return sum(b > a for a, b in (image_strip(h, k, n) for h, _ in
+                                  plan.level_shapes[:plan.height]))
+
+
+def check_space_launches(case, per_slot, plan, n, per_level):
+    """Each slot with rows launched the reduce at every level and each of
+    ``per_level`` at every level where its strip has rows; a slot without
+    rows launched nothing; nothing else launched."""
+    levels = [rows_per_level(plan, k, n) for k in range(n)]
+    for k, (got, rows) in enumerate(zip(per_slot, levels)):
+        want = dict({name: rows for name in per_level},
+                    gausspyr_reduce=plan.height if rows else 0)
+        bad = {name: c for name, c in got.items() if c != want.get(name, 0)}
+        if bad:
+            raise AssertionError(f"{case}: slot {k} launched {got}, expected {want}")
+    return levels
+
+
+def image_levels(fv, img_t, img_r, dev):
+    """The 4K image's Gaussian pyramid as the default route builds it: test
+    and reference luminance with zero transient planes."""
+    vs = fvt.fvvdp_video_source_array(img_t, img_r, 0, dim_order="HWC",
+                                      display_photometry=fv.display_photometry, device=dev)
+    t, r = vs.get_luminance_block(0, 1)
+    R = torch.stack([t[0], r[0]], dim=0)[None]
+    return fv._get_core(W, H).plan.gaussian_pyramid(torch.cat([R, torch.zeros_like(R)], dim=1))
+
+
+def check_expand_rows(smi, fv, gpyr, sfu_rate):
+    """expand_score2 with a row range against its plain version on the card
+    at the 4K image's levels: a strip from a tile row (each half of a
+    two-slot split), one from an odd row, the last partial tile of level 1
+    and of level 6, an empty strip; the odd-row strip again on the scalar
+    arm (level 0 cut to an odd width).  Then the two halves' tile partials,
+    laid end to end, against the whole level's launch, and their sum by
+    sum_tile_partials against the whole level's sums: both bit for bit."""
+    core = fv._get_core(W, H)
+    odd = gpyr[0][..., :-1].contiguous()
+    odd_coarse = red.gausspyr_reduce(odd)
+    last = core.plan.height - 1
+    h1, h_last = gpyr[1].shape[-2], gpyr[last].shape[-2]
+    halves = [image_strip(H, k, 2) for k in range(2)]          # 4K: 0-1088, 1088-2160
+    odd_rows = (17, H // 2 + 21)
+    runs = [(0, halves[0], gpyr[0], gpyr[1]), (0, halves[1], gpyr[0], gpyr[1]),
+            (0, odd_rows, gpyr[0], gpyr[1]),
+            (1, (h1 - h1 % 16, h1), gpyr[1], gpyr[2]),           # 4K: 1072-1080
+            (last, (h_last - h_last % 16, h_last), gpyr[last], gpyr[last + 1]),  # 32-34
+            (0, (40, 40), gpyr[0], gpyr[1]), (0, odd_rows, odd, odd_coarse)]
+    rows_out = []
+    for bb, rows, fine, coarse in runs:
+        tabs, meta = core._score_tables[bb], core._meta[bb]
+        (got, launches) = counted(lambda: bp.expand_score2(fine, coarse, tabs, meta, rows=rows))
+        want = bp.expand_score2_plain(fine, coarse, tabs, meta, rows=rows)
+        empty = rows[0] == rows[1]
+        rel = 0.0 if empty else rel_err(got[:, :1], want[:, :1])
+        err = (got.double() - want.double()).abs().max().item()
+        plan = None if empty else bp.plan_for(fine, coarse, tabs, rows)
+        ok = bool((got[:, 1] == 0.0).all()) and (
+            bool((got == 0.0).all()) and launches["expand_score2"] == 0 if empty
+            else rel <= SPACE_KERNEL_TOL and launches["expand_score2"] == 1)
+        _, _, h, w = fine.shape
+        n_px = (rows[1] - rows[0]) * w
+        nbytes = 4 * (4 * n_px + 4 * ((rows[1] - rows[0]) // 2 + 2) * coarse.shape[-1]
+                      + tabs.numel() + 2)
+        row = dict(phase="space_kernel", case="expand_score2", level=bb, shape=list(fine.shape),
+                   rows=list(rows), arm=None if plan is None else
+                   ("vector" if plan.vec else "scalar"),
+                   tiles=None if plan is None else list(plan.tiles), max_abs_err=err,
+                   max_rel_err=rel, tolerance=f"relative {SPACE_KERNEL_TOL} on the sum",
+                   launches=launches["expand_score2"], ok=ok, nvidia_smi=smi)
+        if not empty:
+            row["ms"] = time_ms(lambda: bp.expand_score2(fine, coarse, tabs, meta, rows=rows))
+            row["plain_ms"] = time_ms(lambda: bp.expand_score2_plain(
+                fine, coarse, tabs, meta, rows=rows), runs=3, warmup=1)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, SFU_PER_PIXEL * n_px, sfu_rate)
+        emit(row)
+        rows_out.append(row)
+        if not ok:
+            raise AssertionError(f"expand_score2 on rows {rows} of level {bb}: {row}")
+    tabs, meta = core._score_tables[0], core._meta[0]
+    whole = bp.expand_score2(gpyr[0], gpyr[1], tabs, meta, partials=True)
+    halves = torch.cat([bp.expand_score2(gpyr[0], gpyr[1], tabs, meta, rows=rows, partials=True)
+                        for rows in halves], dim=1)
+    sums = bp.sum_tile_partials(halves)
+    one = bp.expand_score2(gpyr[0], gpyr[1], tabs, meta)
+    plain_sum = halves.double().sum(dim=1).float()
+    ok = torch.equal(halves, whole) and torch.equal(sums, one) \
+        and rel_err(sums[:, :1], plain_sum[:, :1]) <= 1e-6
+    row = dict(phase="space_kernel", case="sum_tile_partials", shape=list(halves.shape),
+               partials_bit_for_bit=torch.equal(halves, whole),
+               sums_bit_for_bit=torch.equal(sums, one),
+               rel_err_vs_double_sum=rel_err(sums[:, :1], plain_sum[:, :1]),
+               ms=time_ms(lambda: bp.sum_tile_partials(halves)), ok=bool(ok), nvidia_smi=smi)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"strip partials: {row}")
+    return rows_out
+
+
+def space_image_cases(smi, img_t, img_r):
+    """The 4K image on each route over 'space' meshes of slots on cuda:0,
+    each against the same metric without a mesh: the default route bit for
+    bit, the others within SPACE_TOL and the heatmap within SPACE_HEAT_TOL;
+    each slot's launches exact (check_space_launches).  The default route's
+    warm walls, two slots against one card, in turns.  Returns each route's
+    launches over the slots of its two-slot run."""
+    launches = {}
+    for route, (kw, cut, per_level) in SPACE_ROUTES.items():
+        fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0", **kw)
+        if cut:
+            fv.load_state(fv.parameters, cut_luts(fv))
+        plan = fv._get_core(W, H).plan
+        fv.predict(img_t, img_r, dim_order="HWC")
+        t0 = time.perf_counter()
+        q1, s1 = fv.predict(img_t, img_r, dim_order="HWC")
+        wall_one = time.perf_counter() - t0
+        for n in SPACE_SLOTS if route == "default" else SPACE_SLOTS[:2]:
+            mesh = make_mesh(["cuda:0"] * n, data_parallel=1)
+            (q, s), totals, per_slot = counted_slots(
+                lambda: fv.predict(img_t, img_r, dim_order="HWC", mesh=mesh), n)
+            t0 = time.perf_counter()
+            fv.predict(img_t, img_r, dim_order="HWC", mesh=mesh)
+            wall = time.perf_counter() - t0
+            levels = check_space_launches(f"space {route} over {n}", per_slot, plan, n,
+                                          per_level)
+            bit = bool(q == q1 and np.array_equal(s["Q_per_ch"], s1["Q_per_ch"]))
+            err_q, err_pc = rel_err_max(q, q1), rel_err_max(s["Q_per_ch"], s1["Q_per_ch"])
+            heat_err = None
+            if "heatmap" in s1:
+                heat_err = worst(s["heatmap"].astype(np.float32),
+                                 s1["heatmap"].astype(np.float32))
+            row = dict(phase="space_image", route=route, slots=n, nvidia_smi=smi, jod=q,
+                       jod_one_card=q1, bit_for_bit=bit, rel_err_jod=err_q,
+                       rel_err_q_per_ch=err_pc, heatmap_max_abs_err=heat_err, wall_s=wall,
+                       wall_s_one_card=wall_one,
+                       levels_with_rows_per_slot=levels, launches=totals,
+                       launches_per_slot=per_slot)
+            if route == "default" and n == 2:
+                walls = {"mesh": [], "one": []}
+                for how in ("mesh", "one", "one", "mesh"):
+                    m = mesh if how == "mesh" else None
+                    walls[how] += warm_seconds(lambda: fv.predict(
+                        img_t, img_r, dim_order="HWC", mesh=m), runs=2)[0]
+                row.update(warm_s_runs=walls, order="mesh, one, one, mesh",
+                           warm_s_median=float(np.median(walls["mesh"])),
+                           warm_s_median_one_card=float(np.median(walls["one"])))
+            emit(row)
+            if route == "default" and not bit or not err_q <= SPACE_TOL \
+                    or not err_pc <= SPACE_TOL \
+                    or (heat_err is not None and not heat_err <= SPACE_HEAT_TOL):
+                raise AssertionError(f"space {route} over {n} slots: {row}")
+            if n == 2:
+                launches[f"space_{route}"] = totals
+        del fv, s1
+        torch.cuda.empty_cache()
+    return launches
+
+
+def space_cards_case(smi, img_t, img_r):
+    """With several cards: the 4K image and a 7680x4320 one (the 4K frame
+    pair tiled 2 x 2) on 'space' = 1, 2 and 4 cards: JODs and Q_per_ch
+    against one card's (within SPACE_TOL; predicted bit for bit), warm walls
+    (median of 5) and each card's peak."""
+    n_cards = torch.cuda.device_count()
+    smi_cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    images = {"3840x2160": (img_t, img_r),
+              "7680x4320": (np.tile(img_t, (2, 2, 1)), np.tile(img_r, (2, 2, 1)))}
+    rows = []
+    for size, (t, r) in images.items():
+        fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0")
+        ref = None
+        for n in (k for k in (1, 2, 4) if k <= n_cards):
+            mesh = None if n == 1 else make_mesh([f"cuda:{i}" for i in range(n)],
+                                                 data_parallel=1)
+            q, s = fv.predict(t, r, dim_order="HWC", mesh=mesh)
+            for i in range(n_cards):
+                torch.cuda.reset_peak_memory_stats(i)
+            times, warm = warm_seconds(lambda: fv.predict(t, r, dim_order="HWC", mesh=mesh),
+                                       runs=5)
+            ref = (q, s["Q_per_ch"]) if ref is None else ref
+            row = dict(image=size, cards=n, jod=q, jod_one_card=ref[0],
+                       rel_err_jod=rel_err_max(q, ref[0]),
+                       rel_err_q_per_ch=rel_err_max(s["Q_per_ch"], ref[1]),
+                       bit_for_bit=bool(q == ref[0] and np.array_equal(s["Q_per_ch"], ref[1])),
+                       warm_s_runs=times, warm_s_median=warm,
+                       peak_bytes_per_card=[torch.cuda.max_memory_allocated(i)
+                                            for i in range(n_cards)])
+            rows.append(row)
+            emit(dict(phase="space_cards", nvidia_smi=smi, nvidia_smi_cards=smi_cards, **row))
+            if not row["rel_err_jod"] <= SPACE_TOL or not row["rel_err_q_per_ch"] <= SPACE_TOL:
+                raise AssertionError(f"space over {n} cards: {row}")
+        del fv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def space_phases(dev, smi, sfu_rate, test_v, ref_v):
+    """Phase 8g.  Returns each route's launches (totals over the slots)."""
+    t0 = time.perf_counter()
+    # a contiguous (H, W, 1) image, as a user passes one (a view into the
+    # clip's last axis would be copied element by element on the host)
+    img_t, img_r = (np.ascontiguousarray(v[..., 0]) for v in (test_v, ref_v))
+    fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0")
+    check_expand_rows(smi, fv, image_levels(fv, img_t, img_r, dev), sfu_rate)
+    del fv
+    torch.cuda.empty_cache()
+    launches = space_image_cases(smi, img_t, img_r)
+    if torch.cuda.device_count() > 1:
+        space_cards_case(smi, img_t, img_r)
+    emit(dict(phase="space_seconds", seconds=time.perf_counter() - t0,
+              cards=torch.cuda.device_count()))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
@@ -3051,6 +3329,7 @@ def main():
     options_only = "--options" in sys.argv
     extras_only = "--extras" in sys.argv
     mesh_only = "--mesh" in sys.argv
+    space_only = "--space" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -3086,7 +3365,12 @@ def main():
         extras_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
         return 0
     if mesh_only:
-        mesh_phases(dev, smi, *synth_clip(H, W, N_FRAMES))
+        clip = synth_clip(H, W, N_FRAMES)
+        mesh_phases(dev, smi, *clip)
+        space_phases(dev, smi, sfu_rate, *clip)
+        return 0
+    if space_only:
+        space_phases(dev, smi, sfu_rate, *synth_clip(H, W, N_FRAMES))
         return 0
 
     # 3. kernels vs plain at the main path's shapes (one block of the clip)
@@ -3531,6 +3815,10 @@ def main():
 
     # 8f. a mesh of two slots on the card, two processes on the card
     mesh = mesh_phases(dev, smi, test_v, ref_v)
+    torch.cuda.empty_cache()
+
+    # 8g. a lone image split by rows over the 'space' axis of slots on the card
+    space = space_phases(dev, smi, sfu_rate, test_v, ref_v)
 
     # 9. kernels line, result line
     print(smi, flush=True)
@@ -3548,6 +3836,8 @@ def main():
         row["extras_launches"] = {case: counts[row["name"]] for case, counts in extras.items()}
         # launches in each case of phase 8f, summed over the mesh's slots
         row["mesh_launches"] = {case: counts[row["name"]] for case, counts in mesh.items()}
+        # launches in each route of phase 8g over two slots, summed over them
+        row["space_launches"] = {case: counts[row["name"]] for case, counts in space.items()}
     emit(dict(kernels=summary))
     emit(dict(ok=True, device=dict(platform="gpu", kind=name,
                                    count=torch.cuda.device_count())))

@@ -32,7 +32,7 @@ has C = 2.  Under log contrast the responses are of log10 luminance.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +44,7 @@ from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
+from fovvideovdp_tpu_torch.ops.cuda import expand_contrast as ec
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan, gausspyr_expand
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
@@ -60,6 +61,21 @@ def card(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+class StripLevel(NamedTuple):
+    """One scored level of a strip of a lone image
+    (:meth:`MetricCore.score_image_strip`): its rows and its share of the
+    level's score.  ``partials``: expand_score2's (1, n_tiles, 2) tile
+    partials (the default route); ``sums``: the (1, 1) sum of the sustained
+    channel's |D|^beta over the rows (the other routes); ``heat``: the rows
+    of the level's difference map (1, 1, r1 - r0, w); ``bands``: per channel,
+    the rows of (T, R, N_nCSF) on the CPU, for ``band_callback``."""
+    rows: Tuple[int, int]
+    partials: Optional[torch.Tensor] = None
+    sums: Optional[torch.Tensor] = None
+    heat: Optional[torch.Tensor] = None
+    bands: Optional[list] = None
 
 
 class MetricCore:
@@ -418,15 +434,24 @@ class MetricCore:
         Q = self._q_from_sums(ssum2[:, :1], bb)
         return torch.cat([Q, torch.zeros_like(Q)], dim=0)
 
-    def _score_frames_fused(self, R: torch.Tensor, temp_ch: int) -> torch.Tensor:
+    def _fused_levels(self, R: torch.Tensor,
+                      strips: Optional[Sequence[Tuple[int, int]]] = None):
+        """expand_score2 over each level of R's Gaussian pyramid, finest
+        first: (bb, its (F, 2) sums), or with ``strips`` (as in
+        :meth:`_composed_levels`) the (F, n_tiles, 2) tile partials of the
+        rows strips[bb], at the levels where it has rows."""
         plan = self.plan
         gpyr = plan.gaussian_pyramid(R)
-        Q_rows = []
         for bb in range(plan.height):
-            ssum2 = bp.expand_score2(gpyr[bb], gpyr[bb + 1], self._score_tables[bb],
-                                     self._meta[bb])               # (F, 2)
-            Q_rows.append(self._q_pair(ssum2, bb, temp_ch))
-        return torch.stack(Q_rows, dim=0)                         # (n_bands, 2, F)
+            rows = None if strips is None else tuple(strips[bb])
+            if rows is None or rows[1] > rows[0]:
+                yield bb, bp.expand_score2(gpyr[bb], gpyr[bb + 1], self._score_tables[bb],
+                                           self._meta[bb], rows=rows,
+                                           partials=rows is not None)
+
+    def _score_frames_fused(self, R: torch.Tensor, temp_ch: int) -> torch.Tensor:
+        return torch.stack([self._q_pair(ssum2, bb, temp_ch)
+                            for bb, ssum2 in self._fused_levels(R)], dim=0)  # (n_bands, 2, F)
 
     def _score_frames_banded(self, R: torch.Tensor, temp_ch: int, fov_tables,
                              gaze_dir=None) -> torch.Tensor:
@@ -450,17 +475,21 @@ class MetricCore:
                                               self._fov_meta[bb])     # (F, 2)
                 Q_rows.append(self._q_pair(ssum, bb, temp_ch))
                 continue
-            Q_cc = []
-            for cc in range(temp_ch):
-                meta = self._channel_meta[bb][cc]
-                ssum = bs.band_score(band[:, 2 * cc], band[:, 2 * cc + 1], L,
-                                     self._channel_tables[bb][cc], meta,
-                                     (meta.q_s, meta.q_t)[cc])    # (F,)
-                Q_cc.append(self._q_from_sums(ssum[:, None], bb)[0])
-            while len(Q_cc) < 2:
-                Q_cc.append(torch.zeros_like(Q_cc[0]))
-            Q_rows.append(torch.stack(Q_cc, dim=0))
+            Q_rows.append(self._q_channels(self._channel_sums(band, L, bb, temp_ch), bb))
         return torch.stack(Q_rows, dim=0)
+
+    def _channel_sums(self, band: torch.Tensor, L: torch.Tensor, bb: int,
+                      temp_ch: int) -> torch.Tensor:
+        """(F, temp_ch) sums of |D|^beta of level bb's contrast ``band`` (F,
+        C, h, w) against L (F, h, w), one band_score launch per channel with
+        its own LUT (per-channel LUTs)."""
+        sums = []
+        for cc in range(temp_ch):
+            meta = self._channel_meta[bb][cc]
+            sums.append(bs.band_score(band[:, 2 * cc], band[:, 2 * cc + 1], L,
+                                      self._channel_tables[bb][cc], meta,
+                                      (meta.q_s, meta.q_t)[cc]))   # (F,)
+        return torch.stack(sums, dim=-1)
 
     def _sensitivity(self, bb: int, cc: int, L: torch.Tensor, fov_tables,
                      ecc=None) -> torch.Tensor:
@@ -473,20 +502,24 @@ class MetricCore:
             return csf_mod.sensitivity_pixel_tables(lut, fov_tables[bb][cc], L)
         return csf_mod.sensitivity_1d(self.luts[cc], self._band_tables[bb][cc], L)
 
-    def _adapted_levels(self, R: torch.Tensor):
-        """Per scored level, finest first: (band (F, C, h, w), L_bkg
-        (F, h, w), is_contrast), after ``fovvideovdp_tpu/core.py:315-380``
-        (the MATLAB core's adaptation modes, matlab/fvvdp_core.m:214-300).
-        Under "gpyr" with Weber contrast the bands are Weber contrast and
-        L_bkg is clamped to >= 0.1 (the expand_contrast kernel); otherwise
-        each band is the Laplacian level of the Gaussian pyramid (reduce
-        kernel) and L_bkg the adapting luminance of the reference's
+    def _adapted_levels(self, R: torch.Tensor, levels: Optional[Sequence[int]] = None):
+        """Per scored level of ``levels`` (default: all), finest first:
+        (bb, band (F, C, h, w), L_bkg (F, h, w), is_contrast), after
+        ``fovvideovdp_tpu/core.py:315-380`` (the MATLAB core's adaptation
+        modes, matlab/fvvdp_core.m:214-300).  Under "gpyr" with Weber
+        contrast the bands are Weber contrast and L_bkg is clamped to >= 0.1
+        (the expand_contrast kernel, launched for the levels asked for only);
+        otherwise each band is the Laplacian level of the Gaussian pyramid
+        (reduce kernel) and L_bkg the adapting luminance of the reference's
         sustained channel, in cd/m^2 also under log contrast."""
         plan = self.plan
         la = self.local_adapt
+        levels = range(plan.height) if levels is None else levels
         if la == "gpyr" and not self.log_contrast:
-            for band, L_bkg in plan.contrast_levels(R):
-                yield band, L_bkg[:, 0], True
+            gpyr = plan.gaussian_pyramid(R)
+            for bb in levels:
+                band, L_bkg = ec.expand_contrast(gpyr[bb], gpyr[bb + 1], 1)
+                yield bb, band, L_bkg[:, 0], True
             return
 
         def linear(g):            # the reference-sustained plane in cd/m^2
@@ -500,7 +533,7 @@ class MetricCore:
             # geometric mean of the reference sustained channel, per frame
             L_adapt = torch.exp(torch.mean(torch.log(utils.clip(linear(R[:, 1]), 1e-8)),
                                            dim=(-2, -1)))
-        for bb in range(plan.height):
+        for bb in levels:
             size = plan.level_shapes[bb]
             band = gpyr[bb] - gausspyr_expand(gpyr[bb + 1], size)
             if la == "gpyr":      # log contrast
@@ -516,7 +549,7 @@ class MetricCore:
                 L_bkg = utils.clip(resize(L_adapt, size, "cubic"), 1e-4)
             else:                 # global
                 L_bkg = L_adapt[:, None, None].expand((L_adapt.shape[0],) + size)
-            yield band, L_bkg, False
+            yield bb, band, L_bkg, False
 
     def _apply_masking(self, T, Rf, N_nCSF, cc: int) -> torch.Tensor:
         p = self.params
@@ -545,31 +578,46 @@ class MetricCore:
         return self.content_mapping.eccentricity(
             (w, h), xx, yy, gaze_dir[:, 0, None, None] + 0.5, gaze_dir[:, 1, None, None] + 0.5)
 
-    def _score_frames_composed(self, R: torch.Tensor, temp_ch: int, fov_tables,
-                               gaze_dir=None
-                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """The per-pixel composition in tensor operations
-        (``fovvideovdp_tpu/core.py:451-668``), keeping the difference map D
-        of every level for the heatmap.  ``gaze_dir``: the (F, 2) gaze as
-        view directions, or in pixels with a content mapping."""
+    def _composed_levels(self, R: torch.Tensor, temp_ch: int, fov_tables, gaze_dir=None,
+                         strips: Optional[Sequence[Tuple[int, int]]] = None,
+                         callback: Optional[Callable] = None):
+        """The per-pixel composition (``fovvideovdp_tpu/core.py:451-668``),
+        one scored level at a time, finest first: (bb, (F, temp_ch) sums of
+        |D|^beta over the level's pixels, the difference map D of the
+        level weighted over the channels and divided by the band's gain
+        (F, h, w), or None without a heatmap).  ``gaze_dir``: the (F, 2)
+        gaze as view directions, or in pixels with a content mapping.
+        ``strips[bb]`` = (r0, r1) scores only those rows of level bb (a slot
+        of a lone image split over 'space'; an empty range skips the level):
+        the level is adapted whole, then cut, so the boundary mask and the
+        "simple" and "global" adaptations see the whole image; the cut keeps
+        the rows that the ``pu_dilate`` blur of the masking signal reaches on
+        either side, and D is trimmed to the strip after the masking.
+        ``callback(bb, cc, T, R, N_nCSF)`` receives each band's arrays."""
         p = self.params
         plan = self.plan
-        F = R.shape[0]
         sens_corr = 10.0 ** (p["sensitivity_correction"] / 20.0)
         w_temp_ch = (1.0, p["w_transient"])
         n_bands = plan.get_band_count()
-        Q_rows = []
-        heat_bands: List[torch.Tensor] = []
-        for bb, (band, L_bkg, is_contrast) in enumerate(self._adapted_levels(R)):
+        levels = None if strips is None else [bb for bb, (r0, r1) in enumerate(strips)
+                                              if r1 > r0]
+        halo = utils.ImGaussFilt(self.pu_dilate).half if self.pu_dilate != 0.0 else 0
+        for bb, band, L_bkg, is_contrast in self._adapted_levels(R, levels):
+            h, w = band.shape[-2:]
+            rows = keep = slice(None)
+            if strips is not None:
+                r0, r1 = strips[bb]
+                c0, c1 = max(r0 - halo, 0), min(r1 + halo, h)
+                band, L_bkg = band[..., c0:c1, :], L_bkg[..., c0:c1, :]
+                rows, keep = slice(r0, r1), slice(r0 - c0, r1 - c0)
             gain = plan.band_gain(bb, n_bands)
             band = band * gain
-            h, w = band.shape[-2:]
             ecc = None if gaze_dir is None else self._eccentricity(bb, gaze_dir)
             if not is_contrast and not self.log_contrast:
                 # the reference's compute_local_contrast clamps L_bkg >= 0.1
                 # before the division; the CSF still sees the unclamped L_bkg
                 L_div = utils.clip(L_bkg, 0.1)
-            Q_cc = []
+            sums = []
             D_acc = None
             for cc in range(temp_ch):
                 T_f, R_f = band[:, 2 * cc], band[:, 2 * cc + 1]
@@ -582,51 +630,77 @@ class MetricCore:
                     N_nCSF = torch.log10(1.0 + utils.clip(1.0 / S, None, 0.9999999))
                 else:
                     N_nCSF = 1.0 / S
-                if self.band_callback is not None:
-                    # a debugging hook: this band's arrays go to the host
-                    self.band_callback(bb, plan.height, cc, T_f.detach().cpu(),
-                                       R_f.detach().cpu(), N_nCSF.detach().cpu())
-                D = self._apply_masking(T_f, R_f, N_nCSF, cc)
+                if callback is not None:
+                    callback(bb, cc, T_f[..., keep, :], R_f[..., keep, :],
+                             N_nCSF[..., keep, :])
+                D = self._apply_masking(T_f, R_f, N_nCSF, cc)[..., keep, :]
                 if self.ignore_boundary_pixels:
                     # edge pixels see the padding (matlab/fvvdp_core.m:369-379)
                     cy, cx = min(3, h), min(3, w)
                     mask = torch.zeros((h, w), dtype=D.dtype, device=D.device)
                     mask[cy:h - cy, cx:w - cx] = 1.0
-                    D = D * mask
+                    D = D * mask[rows]
                 if self.content_mapping is not None and ecc is not None:
                     # nothing behind the viewer's head is visible
                     # (matlab/fvvdp_core.m:387-391)
                     D = torch.where(ecc > 105.0, torch.zeros_like(D), D)
-                ssum = torch.sum(torch.pow(torch.abs(D), p["beta"]), dim=(-2, -1))
-                Q_cc.append(self._q_from_sums(ssum[:, None], bb)[0])
+                sums.append(torch.sum(torch.pow(torch.abs(D), p["beta"]), dim=(-2, -1)))
                 if self.do_heatmap:
                     D_acc = D if cc == 0 else D_acc + w_temp_ch[cc] * D
-            while len(Q_cc) < 2:
-                Q_cc.append(torch.zeros((F,), dtype=R.dtype, device=R.device))
-            Q_rows.append(torch.stack(Q_cc, dim=0))
+            yield bb, torch.stack(sums, dim=-1), None if D_acc is None else D_acc / gain
+
+    def _q_channels(self, ssum: torch.Tensor, bb: int) -> torch.Tensor:
+        """(F, temp_ch) sums -> (2, F) norms, a missing transient channel 0."""
+        Q = self._q_from_sums(ssum, bb)
+        if Q.shape[0] < 2:
+            Q = torch.cat([Q, torch.zeros_like(Q)], dim=0)
+        return Q
+
+    def _score_frames_composed(self, R: torch.Tensor, temp_ch: int, fov_tables,
+                               gaze_dir=None
+                               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The per-pixel composition in tensor operations, keeping the
+        difference map D of every level for the heatmap
+        (:meth:`_composed_levels`)."""
+        plan = self.plan
+        callback = None
+        if self.band_callback is not None:
+            def callback(bb, cc, T_f, R_f, N_nCSF):
+                # a debugging hook: this band's arrays go to the host
+                self.band_callback(bb, plan.height, cc, T_f.detach().cpu(),
+                                   R_f.detach().cpu(), N_nCSF.detach().cpu())
+        Q_rows = []
+        heat_bands: List[torch.Tensor] = []
+        for bb, ssum, D in self._composed_levels(R, temp_ch, fov_tables, gaze_dir,
+                                                 callback=callback):
+            Q_rows.append(self._q_channels(ssum, bb))
             if self.do_heatmap:
-                heat_bands.append((D_acc / gain)[:, None])        # (F, 1, h, w)
+                heat_bands.append(D[:, None])                     # (F, 1, h, w)
         Q_per_ch = torch.stack(Q_rows, dim=0)
         if not self.do_heatmap:
             return Q_per_ch, None
+        return Q_per_ch, self._heatmap(heat_bands, R[:, 0:1])
 
-        base = torch.zeros((F, 1) + plan.level_shapes[plan.height], dtype=R.dtype,
-                           device=R.device)
+    def _heatmap(self, heat_bands: List[torch.Tensor], context: torch.Tensor) -> torch.Tensor:
+        """The heatmap from each level's difference map (F, 1, h, w), finest
+        first; ``context`` (F, 1, H, W) is the test-sustained channel."""
+        plan = self.plan
+        p = self.params
+        F = context.shape[0]
+        base = torch.zeros((F, 1) + plan.level_shapes[plan.height], dtype=context.dtype,
+                           device=context.device)
         dmap = plan.reconstruct(heat_bands + [base])
         beta_jod = 10.0 ** p["log_jod_exp"]
         dmap = torch.pow(torch.clamp(dmap, min=0.0), beta_jod) * abs(p["jod_a"])
         if self.heatmap == "raw":
             heat = dmap
         else:
-            # the context is the test-sustained channel
-            heat = visualize_diff_map_frames(dmap, R[:, 0:1], self.heatmap)
+            heat = visualize_diff_map_frames(dmap, context, self.heatmap)
         if self.heatmap_dtype == "uint8":
             # display-referred RGB in [0, 1], quantised on the device
             # (torch.round rounds half to even, as jnp.round does)
-            heat = torch.round(torch.clamp(heat, 0.0, 1.0) * 255.0).to(torch.uint8)
-        else:
-            heat = heat.to(torch.float16)
-        return Q_per_ch, heat
+            return torch.round(torch.clamp(heat, 0.0, 1.0) * 255.0).to(torch.uint8)
+        return heat.to(torch.float16)
 
     def score_image(self, T: torch.Tensor, Rf: torch.Tensor, fov_tables=None, gaze=None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -634,6 +708,87 @@ class MetricCore:
         ``gaze``: (1, 2), in place of ``fov_tables``."""
         return self.score_frames(torch.stack([T, Rf], dim=0)[None], temp_ch=1,
                                  fov_tables=fov_tables, gaze=gaze)
+
+    def score_image_strip(self, T: torch.Tensor, Rf: torch.Tensor,
+                          strips: Sequence[Tuple[int, int]]) -> List[Optional[StripLevel]]:
+        """A strip of the lone (H, W) luminance pair T, Rf split by rows
+        (``parallel.sharding.image_strip``), ``strips[bb]`` = (r0, r1) its
+        rows of scored level bb: per level, the strip's share of the score,
+        or None where it has no rows, and nothing is launched for that
+        level.  The Gaussian pyramid is built whole
+        (reduce kernel), so each strip expands and adapts as the whole image
+        does, and only the strip's rows are scored: by expand_score2 with
+        their row range (default route), band_score on views of their rows
+        (per-channel LUTs) or the composition cut to them.
+        :meth:`combine_image_strips` puts the strips together.  (The JAX
+        package leaves this split to XLA's partitioner: it has no row range.)"""
+        if self.foveated:
+            raise ValueError("a foveated lone image is not split over a mesh's 'space' axis")
+        plan = self.plan
+        out: List[Optional[StripLevel]] = [None] * plan.height
+        R = torch.stack([T, Rf], dim=0)[None]
+        if self.route == "fused":
+            # zero transient channels score exactly 0 (D(0,0) = 0)
+            for bb, part in self._fused_levels(torch.cat([R, torch.zeros_like(R)], dim=1),
+                                               strips):
+                out[bb] = StripLevel(tuple(strips[bb]), partials=part)
+        elif self.route == "banded":
+            # per-channel LUTs: the sustained channel's scorer on views of the rows
+            gpyr = plan.gaussian_pyramid(R)
+            for bb, (r0, r1) in enumerate(strips):
+                if r1 > r0:
+                    band, L_bkg = ec.expand_contrast(gpyr[bb], gpyr[bb + 1], 1)
+                    out[bb] = StripLevel((r0, r1), sums=self._channel_sums(
+                        band[..., r0:r1, :], L_bkg[:, 0, r0:r1], bb, 1))
+        else:
+            bands: Dict[int, list] = {}
+            callback = None
+            if self.band_callback is not None:
+                def callback(bb, cc, T_f, R_f, N_nCSF):
+                    # called with the whole bands in the caller's thread later
+                    bands.setdefault(bb, []).append(
+                        tuple(x.detach().cpu() for x in (T_f, R_f, N_nCSF)))
+            for bb, ssum, D in self._composed_levels(R, 1, None, strips=strips,
+                                                     callback=callback):
+                out[bb] = StripLevel(strips[bb], sums=ssum,
+                                     heat=None if D is None else D[:, None],
+                                     bands=bands.get(bb))
+        return out
+
+    def combine_image_strips(self, parts: Sequence[Optional[List[Optional[StripLevel]]]],
+                             T: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(Q_per_ch (n_bands, 2, 1), heatmap or None) of a lone image from
+        the :meth:`score_image_strip` of its strips, in row order (None: a
+        strip with no rows), on this core's device.  Per level the default
+        route's tile partials are laid end to end and added by
+        expand_score2's second pass, which gives the sums of one launch over
+        the whole level bit for bit; the other routes' sums are added in
+        double.  Then the beta root over the whole level's pixels
+        (:meth:`_q_from_sums`); the transient row stays the constant 0.  The
+        heatmap and ``band_callback`` (called here, in the caller's thread,
+        in band and channel order) get each level's rows gathered in order.
+        ``T``: the (H, W) test luminance, the heatmap's context."""
+        dev = self.device
+        Q_rows = []
+        heat_bands: List[torch.Tensor] = []
+        for bb in range(self.plan.height):
+            got = [p[bb] for p in parts if p is not None and p[bb] is not None]
+            if self.route == "fused":
+                ssum = bp.sum_tile_partials(torch.cat([g.partials.to(dev) for g in got], dim=1))
+                Q_rows.append(self._q_pair(ssum, bb, 1))
+            else:
+                ssum = torch.stack([g.sums.to(dev, torch.float64) for g in got]).sum(dim=0)
+                Q_rows.append(self._q_channels(ssum.float(), bb))
+            if self.band_callback is not None:
+                for cc in range(len(got[0].bands)):
+                    self.band_callback(bb, self.plan.height, cc, *(
+                        torch.cat([g.bands[cc][i] for g in got], dim=-2) for i in range(3)))
+            if self.do_heatmap:
+                heat_bands.append(torch.cat([g.heat.to(dev) for g in got], dim=-2))
+        Q_per_ch = torch.stack(Q_rows, dim=0)
+        if not self.do_heatmap:
+            return Q_per_ch, None
+        return Q_per_ch, self._heatmap(heat_bands, T.to(dev)[None, None])
 
     def score_frame_pairs(self, frames: Callable, n: int, chunk: int, fov_tables=None,
                           gaze=None, keep: Optional[Callable] = None) -> torch.Tensor:

@@ -2,8 +2,10 @@
 non-foveated path, the per-pixel reductions of the fixed-gaze path and the
 per-frame trilinear lookup of the moving-gaze path.
 
-Counterpart of ``fovvideovdp_tpu/csf.py:35-386,444-500``, with the JAX
-package's search order for a LUT (``CSFCache``).  A LUT is a dict
+Counterpart of ``fovvideovdp_tpu/csf.py``, with the JAX package's search
+order for a LUT (``CSFCache``) and its general queries: :func:`sensitivity`
+(the reference's cell search on every axis) and
+:func:`sensitivity_trilinear` (dense weight rows).  A LUT is a dict
 of float32 tensors (``LUT_FIELDS``) plus ``"_uniform"``, the per-axis flags
 saying whether the grid is uniform in its transformed space.  The 1-D
 reductions run once per metric core, on the host, in numpy, with the same
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch import csf_generator, utils
+from fovvideovdp_tpu_torch.ops.interp import interp3
 
 LUT_FIELDS = ("Y", "rho", "ecc", "Y_log", "rho_log", "ecc_sqrt", "S_log")
 
@@ -95,6 +98,13 @@ class CSFCache:
 def _grid_is_uniform(grid: np.ndarray, rtol: float = 1e-4) -> bool:
     d = np.diff(np.asarray(grid, dtype=np.float64))
     return bool(d.size == 0 or np.allclose(d, d[0], rtol=rtol, atol=1e-7))
+
+
+def lut_is_uniform(lut: Dict) -> bool:
+    """True when every LUT axis is uniform in its transformed space (the
+    shipped calibration LUTs are; user .mat caches may not be)."""
+    flags = lut.get("_uniform")
+    return flags is None or all(flags.values())
 
 
 def _axis_uniform(lut: Dict, axis: str) -> bool:
@@ -180,13 +190,15 @@ def trim_lut_range(tables, lut: Dict, lbkg_min: float = 0.1,
 
 @contextlib.contextmanager
 def _full_fp32_matmul():
-    """Matrix products in full float32 (TF32 keeps about three digits)."""
-    was = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = was
+    """Matrix products in full float32 (TF32 keeps about three digits), the
+    switch held against other threads (``utils.FP32_LOCK``)."""
+    with utils.FP32_LOCK:
+        was = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
 
 
 def _two_point_rows(i_lo, i_hi, f, n: int) -> torch.Tensor:
@@ -432,3 +444,64 @@ def sensitivity_trilinear_block(lut: Dict, rho_map: torch.Tensor, L_bkg: torch.T
                 acc += wy * wr * (flat[row + e0] * (1.0 - fe) + flat[row + e1] * fe)
         s_log[a:a + step] = acc
     return torch.exp2(s_log)
+
+
+# ---------------------------------------------------------------------------
+# General queries S(rho, L_bkg, ecc)
+# ---------------------------------------------------------------------------
+
+def _query(lut: Dict, rho, L_bkg, ecc):
+    """The queries clamped to the grid in linear space and mapped to the
+    grid's (log2 rho, log2 Y, sqrt ecc) axes; ``rho`` and ``ecc`` (scalars
+    or tensors) broadcast against ``L_bkg``."""
+    V = lut["S_log"]
+    L = torch.as_tensor(L_bkg, dtype=torch.float32, device=V.device)
+    rho = torch.broadcast_to(torch.as_tensor(rho, dtype=torch.float32, device=V.device),
+                             L.shape)
+    ecc = torch.broadcast_to(torch.as_tensor(ecc, dtype=torch.float32, device=V.device),
+                             L.shape)
+    return (torch.log2(torch.clamp(rho, lut["rho"][0], lut["rho"][-1])),
+            torch.log2(torch.clamp(L, lut["Y"][0], lut["Y"][-1])),
+            torch.sqrt(torch.clamp(ecc, lut["ecc"][0], lut["ecc"][-1])))
+
+
+def sensitivity(lut: Dict, rho, L_bkg, ecc) -> torch.Tensor:
+    """Interpolated sensitivity S(rho, L_bkg, ecc) from a LUT: the
+    reference's trilinear cell search on every axis (pyfvvdp/fvvdp.py:
+    529-537).  ``rho`` and ``ecc`` may be scalars, broadcast against
+    ``L_bkg``."""
+    rho_q, Y_q, ecc_q = _query(lut, rho, L_bkg, ecc)
+    s_log = interp3(lut["rho_log"], lut["Y_log"], lut["ecc_sqrt"], lut["S_log"],
+                    rho_q, Y_q, ecc_q)
+    return torch.exp2(s_log)
+
+
+# queries per pass of sensitivity_trilinear: a pass keeps a (chunk, n, n)
+# float32 intermediate (4 KB a query at n = 32)
+_QUERY_CHUNK = 16384
+
+
+def sensitivity_trilinear(lut: Dict, rho, L_bkg, ecc) -> torch.Tensor:
+    """S(rho, L_bkg, ecc) as :func:`sensitivity` gives it, through dense
+    2-point weight rows on each axis (index arithmetic on a uniform axis,
+    the reference cell search on another) contracted with the LUT one axis
+    after another, as the JAX package computes it, a chunk of queries at a
+    time."""
+    rho_q, Y_q, ecc_q = _query(lut, rho, L_bkg, ecc)
+    shape = Y_q.shape
+    rho_q, Y_q, ecc_q = rho_q.reshape(-1), Y_q.reshape(-1), ecc_q.reshape(-1)
+    V = lut["S_log"]                       # [Y, rho, ecc]
+    n_y, n_r, n_e = V.shape
+    V_flat = V.reshape(n_y, n_r * n_e)
+    u_y, u_r, u_e = (_axis_uniform(lut, ax) for ax in ("Y_log", "rho_log", "ecc_sqrt"))
+    s_log = torch.empty_like(Y_q)
+    with _full_fp32_matmul():
+        for a in range(0, Y_q.shape[0], _QUERY_CHUNK):
+            sl = slice(a, a + _QUERY_CHUNK)
+            w_y = _grid_weights(Y_q[sl], lut["Y_log"], u_y)          # (c, n_y)
+            w_r = _grid_weights(rho_q[sl], lut["rho_log"], u_r)      # (c, n_r)
+            w_e = _grid_weights(ecc_q[sl], lut["ecc_sqrt"], u_e)     # (c, n_e)
+            A = torch.matmul(w_y, V_flat).reshape(-1, n_r, n_e)      # (c, rho, ecc)
+            B = torch.einsum("pik,pi->pk", A, w_r)                   # (c, ecc)
+            s_log[sl] = torch.sum(B * w_e, dim=-1)
+    return torch.exp2(s_log).reshape(shape)

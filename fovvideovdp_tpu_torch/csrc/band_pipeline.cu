@@ -45,6 +45,18 @@
 // frame in a fixed order, then per frame over the tiles in a fixed order.  No
 // atomics: results are deterministic.  A NaN in either level gives a NaN sum
 // for its frame (score_math.cuh).
+//
+// A row range [r_lo, r_hi) of the fine level scores those rows only (a strip
+// of a lone image split over several cards).  The tiles stay on the level's
+// grid of 16-row tile rows: the launch covers tile rows r_lo / 16 up to
+// ceil(r_hi / 16), and rows outside the range are loaded only where they are
+// in the level and never summed.  A strip that starts on a tile row
+// therefore gives every tile the partial sums of the whole level's launch,
+// and the strips' partials, laid end to end in row order, are the whole
+// level's.  Without a place for the sums, the launch leaves its partials for
+// the caller to gather and add with fvvdp_sum_partials.  The coarse window
+// still clamps at the whole level's edges, so a strip expands as the whole
+// level does.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -72,6 +84,7 @@ struct ScoreArgs {
     const float* tables;   // (2, n_grid)
     float* partials;       // (F, tiles, 2)
     int F, H, W, h2, w2, n_grid, tiles_x, frames_per_group;
+    int tile_row0, r_lo, r_hi;   // first tile row of the launch; the rows scored
     float y0, inv_dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta;
 };
 
@@ -116,10 +129,11 @@ __global__ void __launch_bounds__(kThreads, 2) expand_score_kernel(ScoreArgs a) 
 
     const int tid = threadIdx.x;
     const int tile_y = blockIdx.x / a.tiles_x, tile_x = blockIdx.x - tile_y * a.tiles_x;
-    const int r0 = tile_y * kPatchTileH, c0 = tile_x * kPatchTileW;
+    const int r0 = (a.tile_row0 + tile_y) * kPatchTileH, c0 = tile_x * kPatchTileW;
     const int pj = tid & 31, pi = tid >> 5;   // the thread's patch in the tile
     const int gy = r0 + 2 * pi, gx = c0 + 4 * pj;
-    const int n_rows = min(max(a.H - gy, 0), 2);
+    const int n_rows = min(max(a.r_hi - gy, 0), 2);   // rows loaded: those before r_hi
+    const int skip = a.r_lo - gy;                      // rows before r_lo: not summed
     const int n_cols = min(max(a.W - gx, 0), 4);   // 0 or 4 on the vector arm
     const size_t plane = (size_t)a.H * a.W;
     const int c_plane = a.h2 * a.w2;
@@ -185,7 +199,7 @@ __global__ void __launch_bounds__(kThreads, 2) expand_score_kernel(ScoreArgs a) 
                                                            a.lc10, a.beta);
                 const float d_t = fvvdp::d_beta_log2<Math>(con[2], con[3], ls_t, a.p, a.q_t,
                                                            a.lc10, a.beta);
-                const bool live = r < n_rows && k < n_cols;
+                const bool live = r < n_rows && r >= skip && k < n_cols;
                 acc_s += live ? d_s : 0.0f;
                 acc_t += live ? d_t : 0.0f;
             }
@@ -201,7 +215,7 @@ template <bool kVec, int kBkg>
 int launch(const ScoreArgs& a, int tiles, int groups, float* out, cudaStream_t stream) {
     expand_score_kernel<kVec, kBkg><<<dim3(tiles, groups), kThreads, 0, stream>>>(a);
     cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess || out == nullptr) return static_cast<int>(err);
     fvvdp::sum_partials_kernel<<<a.F, fvvdp::kSumThreads, 0, stream>>>(a.partials, out, tiles);
     return static_cast<int>(cudaGetLastError());
 }
@@ -219,15 +233,18 @@ int launch_bkg(int bkg_ch, const ScoreArgs& a, int tiles, int groups, float* out
 
 }  // namespace
 
-// fine (F,4,H,W), coarse (F,4,h2,w2), tables (2,n_grid), partials scratch
+// fine (F,4,H,W), coarse (F,4,h2,w2), tables (2,n_grid), partials
 // (F, tiles_x * tiles_y, 2) and out (F, 2): device pointers, float32,
-// contiguous.  vec, tiles_x, tiles_y, frames_per_group and groups are the
-// caller's launch plan (ops/cuda/band_pipeline.py:launch_plan): the arm with
-// 16-byte loads, the 16 x 128 tiles of a frame and the split of the frames
-// over grid.y.  A plan that does not fit the arguments is refused.
+// contiguous; out may be null, and the partials are then the result.  Fine
+// rows [r_lo, r_hi) are scored (0 and H: the whole level).  vec, tiles_x,
+// tiles_y, frames_per_group and groups are the caller's launch plan
+// (ops/cuda/band_pipeline.py:launch_plan): the arm with 16-byte loads, the
+// 16 x 128 tiles of the rows and the split of the frames over grid.y.  A plan
+// that does not fit the arguments is refused.
 extern "C" int fvvdp_expand_score2(const float* fine, const float* coarse,
                                    const float* tables, float* partials, float* out,
                                    int F, int H, int W, int h2, int w2, int n_grid,
+                                   int r_lo, int r_hi,
                                    int bkg_ch, int vec, int tiles_x, int tiles_y,
                                    int frames_per_group, int groups, float y0, float inv_dy,
                                    float Ymin, float Ymax, float p, float q_s, float q_t,
@@ -237,15 +254,30 @@ extern "C" int fvvdp_expand_score2(const float* fine, const float* coarse,
         W < 1 || h2 != (H + 1) / 2 || w2 != (W + 1) / 2 ||
         (long long)h2 * w2 > (1LL << 30))
         return static_cast<int>(cudaErrorInvalidValue);
+    if (r_lo < 0 || r_hi <= r_lo || r_hi > H) return static_cast<int>(cudaErrorInvalidValue);
+    const int tile_row0 = r_lo / kPatchTileH;
     if (tiles_x != (W + kPatchTileW - 1) / kPatchTileW ||
-        tiles_y != (H + kPatchTileH - 1) / kPatchTileH || frames_per_group < 1 ||
+        tiles_y != (r_hi + kPatchTileH - 1) / kPatchTileH - tile_row0 || frames_per_group < 1 ||
         groups != (F + frames_per_group - 1) / frames_per_group || groups > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (vec && (W % 4 != 0 || reinterpret_cast<std::uintptr_t>(fine) % 16 != 0))
+    if (vec && (W % 4 != 0 ||
+                reinterpret_cast<std::uintptr_t>(fine + (size_t)r_lo * W) % 16 != 0))
         return static_cast<int>(cudaErrorInvalidValue);
     const ScoreArgs a{fine, coarse, tables, partials, F, H, W, h2, w2, n_grid, tiles_x,
-                      frames_per_group, y0, inv_dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta};
+                      frames_per_group, tile_row0, r_lo, r_hi,
+                      y0, inv_dy, Ymin, Ymax, p, q_s, q_t, lc10, lcorr, beta};
     const int tiles = tiles_x * tiles_y;
     return vec ? launch_bkg<true>(bkg_ch, a, tiles, groups, out, stream)
                : launch_bkg<false>(bkg_ch, a, tiles, groups, out, stream);
+}
+
+// out[f, c] = sum over parts of partials[f, part, c] (F, n_parts, 2), in the
+// fixed order of expand_score2's second pass: the tile partials of a level's
+// strips, gathered from several launches in row order, summed as one launch
+// of the whole level sums its own.
+extern "C" int fvvdp_sum_partials(const float* partials, float* out, int F, int n_parts,
+                                  cudaStream_t stream) {
+    if (F < 1 || n_parts < 1) return static_cast<int>(cudaErrorInvalidValue);
+    fvvdp::sum_partials_kernel<<<F, fvvdp::kSumThreads, 0, stream>>>(partials, out, n_parts);
+    return static_cast<int>(cudaGetLastError());
 }

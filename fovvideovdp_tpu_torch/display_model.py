@@ -31,6 +31,13 @@ _PQ = dict(Lmax=10000.0, n=0.15930175781250000, m=78.843750000000000,
            c3=18.687500000000000)
 
 
+def lin2pq(L: torch.Tensor) -> torch.Tensor:
+    """Absolute luminance (cd/m^2) -> PQ-encoded values (0..1)."""
+    k = _PQ
+    im = torch.pow(utils.clip(L, 0.005, k["Lmax"]) / k["Lmax"], k["n"])
+    return torch.pow((k["c2"] * im + k["c1"]) / (1 + k["c3"] * im), k["m"])
+
+
 def pq2lin(V: torch.Tensor) -> torch.Tensor:
     """SMPTE ST 2084 (PQ) encoded values (0..1) -> absolute luminance (cd/m^2)."""
     k = _PQ

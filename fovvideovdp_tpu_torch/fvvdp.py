@@ -407,9 +407,11 @@ class fvvdp:
         another source's blocks are read on the metric's device and each
         slot's frames copied from there.  A checkpoint works as without a
         mesh.  A mesh of one device is no mesh.  A lone image is scored on
-        the mesh's first slot (``parallel.shard_image_fn``); a foveated
-        lone image and the ``do_temporal_channels=False`` ablation are
-        refused under a mesh, as the JAX package refuses them."""
+        the mesh's first slot when its 'space' axis is 1, and split by rows
+        over the slots of its first 'data' row when 'space' > 1, each slot
+        scoring its strip of every level (``parallel.shard_image_fn``); a
+        foveated lone image and the ``do_temporal_channels=False`` ablation
+        are refused under a mesh, as the JAX package refuses them."""
         height, width, N_frames = vid_source.get_video_size()
         if mesh is not None and mesh.size == 1:
             mesh = None    # one device: the one-device path (fovvideovdp_tpu/fvvdp.py:283-286)

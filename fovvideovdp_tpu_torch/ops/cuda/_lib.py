@@ -50,11 +50,14 @@ _SIGNATURES = {
     # (the wrapper's launch plan), stream
     "gausspyr_reduce": ("reduce", "fvvdp_gausspyr_reduce",
                         [_P, _P, *[_I] * 8, _P]),
-    # fine, coarse, tables, partials, out, F, H, W, h2, w2, n_grid, bkg_ch,
-    # vec, tiles_x, tiles_y, frames_per_group, groups (the wrapper's launch
-    # plan), scalars, stream
+    # fine, coarse, tables, partials, out (or null), F, H, W, h2, w2, n_grid,
+    # r_lo, r_hi, bkg_ch, vec, tiles_x, tiles_y, frames_per_group, groups (the
+    # wrapper's launch plan), scalars, stream
     "expand_score2": ("band_pipeline", "fvvdp_expand_score2",
-                      [_P, _P, _P, _P, _P, *[_I] * 12, *_SCORE2, _P]),
+                      [_P, _P, _P, _P, _P, *[_I] * 14, *_SCORE2, _P]),
+    # expand_score2's second pass on gathered partials: partials, out, F,
+    # n_parts, stream (not a kernel of its own: no launch counter)
+    "sum_partials": ("band_pipeline", "fvvdp_sum_partials", [_P, _P, _I, _I, _P]),
     # carry_t, new_t, carry_r, new_r, taps, out, ncarry, nnew, fl, HW, stream
     "temporal_pair": ("temporal", "fvvdp_temporal_pair",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),

@@ -49,14 +49,19 @@ def score_meta(lut, p, q_sust, q_trans, mask_c, sens_corr, beta) -> ScoreMeta:
 # plain versions
 # ---------------------------------------------------------------------------
 
-def _d_beta_sum(T, R, Se, m: ScoreMeta, q: float) -> torch.Tensor:
-    """Masking and the beta-power sum over pixels, direct form."""
+def _d_beta(T, R, Se, m: ScoreMeta, q: float) -> torch.Tensor:
+    """Masking and the beta power per pixel, direct form."""
     Tn = T * Se
     Rn = R * Se
     M = m.c10 * torch.minimum(torch.abs(Tn), torch.abs(Rn))
     D = torch.clamp(torch.pow(torch.abs(Tn - Rn), m.p) / (1.0 + torch.pow(M, q)),
                     max=1e4)
-    return torch.sum(torch.pow(D, m.beta), dim=(-2, -1))
+    return torch.pow(D, m.beta)
+
+
+def _d_beta_sum(T, R, Se, m: ScoreMeta, q: float) -> torch.Tensor:
+    """Masking and the beta-power sum over pixels, direct form."""
+    return torch.sum(_d_beta(T, R, Se, m, q), dim=(-2, -1))
 
 
 def _table_coord(L, m: ScoreMeta, n: int) -> torch.Tensor:
@@ -64,13 +69,18 @@ def _table_coord(L, m: ScoreMeta, n: int) -> torch.Tensor:
                        0.0, float(n - 1))
 
 
-def band_score_plain(T, R, L, table, m: ScoreMeta, q: float) -> torch.Tensor:
-    """Per-frame sum over pixels of D^beta for one channel (direct form)."""
+def band_d_beta_plain(T, R, L, table, m: ScoreMeta, q: float) -> torch.Tensor:
+    """D^beta per pixel for one channel (direct form)."""
     n = table.shape[0]
     u = _table_coord(L, m, n)
     i0, i1, f = two_knots(u, n)
     S_log = table[i0] * (1.0 - f) + table[i1] * f
-    return _d_beta_sum(T, R, torch.exp2(S_log) * m.corr, m, q)
+    return _d_beta(T, R, torch.exp2(S_log) * m.corr, m, q)
+
+
+def band_score_plain(T, R, L, table, m: ScoreMeta, q: float) -> torch.Tensor:
+    """Per-frame sum over pixels of D^beta for one channel (direct form)."""
+    return torch.sum(band_d_beta_plain(T, R, L, table, m, q), dim=(-2, -1))
 
 
 def band_score2_plain(band, L_bkg, tables, meta: ScoreMeta) -> torch.Tensor:

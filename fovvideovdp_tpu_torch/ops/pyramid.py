@@ -68,6 +68,14 @@ def _gausspyr_reduce_plain(x: torch.Tensor) -> torch.Tensor:
     return _reduce_cols(_reduce_rows(x), x.shape[-2])
 
 
+def gausspyr_reduce(x: torch.Tensor) -> torch.Tensor:
+    """One level of Gaussian-pyramid reduction, (..., H, W) -> (...,
+    ceil(H/2), ceil(W/2)): the reduce kernel on a CUDA tensor, its plain
+    version on a CPU tensor (``ops/cuda/reduce.py``)."""
+    from fovvideovdp_tpu_torch.ops.cuda.reduce import gausspyr_reduce as reduce_level
+    return reduce_level(x)
+
+
 def _interleave_pad(x: torch.Tensor, out_size: int, axis: int) -> torch.Tensor:
     """Zero-interleave x along ``axis`` into a buffer of length out_size+4
     with the reference's boundary fill: x[0] at index 0 and x[-1] at
@@ -154,10 +162,25 @@ class PyramidPlan:
         """Interior Laplacian bands carry a 2x gain."""
         return 1.0 if band == 0 or band == n_bands - 1 else 2.0
 
+    def get_band(self, bands: Sequence[torch.Tensor], band: int) -> torch.Tensor:
+        """Band ``band`` of a Laplacian pyramid (bands + base) with its gain."""
+        return bands[band] * self.band_gain(band, len(bands))
+
+    def set_band(self, bands: List[torch.Tensor], band: int, data: torch.Tensor) -> None:
+        """Store ``data``, a band with its gain, as band ``band``."""
+        bands[band] = data / self.band_gain(band, len(bands))
+
+    @staticmethod
+    def get_gband(gbands: Sequence[torch.Tensor], band: int) -> torch.Tensor:
+        """Level ``band`` of a Gaussian pyramid."""
+        return gbands[band]
+
+    def get_gband_count(self) -> int:
+        return self.height + 1
+
     def gaussian_pyramid(self, image: torch.Tensor) -> List[torch.Tensor]:
         """Gaussian levels of ``image`` (..., H, W) through the reduce
         wrapper: the CUDA kernel on the card, the plain version on the CPU."""
-        from fovvideovdp_tpu_torch.ops.cuda.reduce import gausspyr_reduce
         levels = [image]
         for _ in range(self.height):
             levels.append(gausspyr_reduce(levels[-1]))

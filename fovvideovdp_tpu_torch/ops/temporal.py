@@ -69,6 +69,17 @@ def padding_indices(n_frames: int, filter_len: int, mode: str) -> np.ndarray:
     return np.asarray(idx, dtype=np.int32)
 
 
+def temporal_channels(padded_t: torch.Tensor, padded_r: torch.Tensor, F) -> torch.Tensor:
+    """Temporal channels of a test/reference pair: padded_t, padded_r
+    (F_out + fl - 1, H, W), F the (2, fl) filters.  Returns (F_out, 4, H, W)
+    ordered [T-sust, R-sust, T-trans, R-trans] (pyfvvdp/fvvdp.py:293): the
+    temporal kernel with an empty carry on the card, its plain version on
+    the CPU."""
+    empty = padded_t[:0]
+    taps = torch.as_tensor(np.asarray(F, dtype=np.float32), device=padded_t.device)
+    return temporal_channels_pair(empty, padded_t, empty, padded_r, taps)
+
+
 def apply_temporal_filters(padded: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """Causal temporal filtering of a padded frame sequence (plain version).
 

@@ -6,7 +6,7 @@ the slots, score at once, each from a thread of its own on its own CUDA
 stream (``sharding.py``): one streamed video with each block's frames split
 over the slots (``fvvdp.predict(mesh=)``), a batch of pairs split in row
 blocks (``fvvdp.predict_batch(mesh=)``), a lone image on the mesh's first
-slot.  ``multihost.py`` lets several processes score one batch, each its own
+slot, or split by rows over its 'space' axis.  ``multihost.py`` lets several processes score one batch, each its own
 pairs, gathering the results over ``torch.distributed`` (gloo).
 ``shard_video_scan_fn`` is not ported: the port has no scan path.
 """

@@ -46,12 +46,10 @@ import torch
 from fovvideovdp_tpu_torch.core import MetricCore, card
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
+from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import _lib
 from fovvideovdp_tpu_torch.parallel import multihost
 from fovvideovdp_tpu_torch.video_source import resolve_device
-
-SPACE_SPLIT_ITEM = "queue 1 item 2"
-
 
 class Mesh:
     """A ('data', 'space') grid of devices (``devices``: a numpy object
@@ -185,6 +183,17 @@ def split_rows(n: int, parts: int) -> List[Tuple[int, int]]:
     q, r = divmod(n, parts)
     bounds = np.cumsum([0] + [q + (k < r) for k in range(parts)])
     return [(int(a), int(b)) for a, b in zip(bounds[:-1], bounds[1:])]
+
+
+def image_strip(h: int, part: int, n_parts: int) -> Tuple[int, int]:
+    """Rows [r0, r1) of a level of h rows that part ``part`` of ``n_parts``
+    scores when a lone image is split by rows over a mesh's 'space' axis:
+    the level's tile rows of expand_score2 (``band_pipeline.TILE_H`` rows
+    each) split by :func:`split_rows`, so that every strip starts on a tile
+    row and its tiles are the whole level's.  Empty, (h, h), for a part
+    beyond the level's tile rows."""
+    a, b = split_rows(-(-h // bp.TILE_H), n_parts)[part]
+    return min(a * bp.TILE_H, h), min(b * bp.TILE_H, h)
 
 
 def replicas(core: MetricCore, mesh: Mesh, moving: bool = False) -> Dict:
@@ -381,27 +390,52 @@ def score_video_mesh(mesh: Mesh, core: MetricCore, block: Callable, indexed: Cal
 def shard_image_fn(core: MetricCore, mesh: Mesh):
     """The lone-image scorer over a mesh (JAX's ``shard_image_fn``):
     fn(T, Rf) -> (Q_per_ch (n_bands, 2, 1), heatmap or None) on the core's
-    device.  On a mesh whose 'space' axis is 1, JAX leaves the image
-    replicated (``P(None, None)``) and every device scores all of it; here
-    it is scored once, with the kernels, on the mesh's first slot, which
-    gives the same numbers.  Rows split over a 'space' axis > 1 (JAX leaves
-    the convolutions' halos to XLA's partitioner) are not ported: they
-    raise ``NotImplementedError``."""
-    if mesh.shape["space"] > 1:
-        raise NotImplementedError(
-            f"a lone image row-split over the mesh's 'space' axis "
-            f"({mesh.shape['space']}) is not ported to fovvideovdp_tpu_torch yet "
-            f"({SPACE_SPLIT_ITEM} of ROADMAP.md); use a mesh with data_parallel "
-            f"equal to its size, or no mesh")
-    dev = mesh.slots[0]
+    device.
+
+    On a mesh whose 'space' axis is 1, JAX leaves the image replicated
+    (``P(None, None)``) and every device scores all of it; here it is scored
+    once, with the kernels, on the mesh's first slot, which gives the same
+    numbers.  With 'space' > 1 the image's rows are split over the slots of
+    the mesh's first 'data' row, one strip per slot (JAX replicates the
+    image along 'data', so the other rows would add nothing; it splits W
+    where W divides by the axis, and leaves the convolutions' halos to XLA's
+    partitioner).  Every strip slot gets the whole pair and builds the whole
+    Gaussian pyramid, then scores only its rows of each level
+    (:meth:`MetricCore.score_image_strip`; a slot with no rows at a level
+    launches nothing there, one with none at all is not run); the metric's
+    device adds the strips' partial sums before the beta root and gathers
+    the heatmap's rows (:meth:`MetricCore.combine_image_strips`).  On the
+    default route the score is one device's bit for bit."""
+    space = mesh.shape["space"]
+    if space == 1:
+        dev = mesh.slots[0]
+
+        def fn(T, Rf):
+            c = core.replica(dev)
+
+            def score():
+                return c.score_image(T.to(dev), Rf.to(dev))
+            Q, heat = mesh.run([score])[0]
+            return Q.to(core.device), None if heat is None else heat.to(core.device)
+
+        return fn
+
+    slots = mesh.slots[:space]          # the first 'data' row
 
     def fn(T, Rf):
-        c = core.replica(dev)
+        # built in the caller's thread: slots on one card share its replica
+        cores = {d: core.replica(d) for d in set(slots)}
 
-        def score():
-            return c.score_image(T.to(dev), Rf.to(dev))
-        Q, heat = mesh.run([score])[0]
-        return Q.to(core.device), None if heat is None else heat.to(core.device)
+        def part(k):
+            dev = slots[k]
+            strips = [image_strip(h, k, space) for h, _ in
+                      core.plan.level_shapes[:core.plan.height]]
+
+            def score():
+                return cores[dev].score_image_strip(T.to(dev), Rf.to(dev), strips)
+            return score if strips[0][1] > strips[0][0] else None
+        parts = mesh.run([part(k) for k in range(space)])
+        return core.combine_image_strips(parts, T)
 
     return fn
 

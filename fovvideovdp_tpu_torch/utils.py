@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Optional
 
 import numpy as np
@@ -136,15 +137,22 @@ class ImGaussFilt:
         return y[0, 0] if squeeze else y
 
 
+# held while a TF32 switch is turned off around a product: the switches are
+# global, and the slots of a mesh convolve from threads of their own, so one
+# thread must not turn a switch back on under another's product
+FP32_LOCK = threading.Lock()
+
+
 def conv2d_fp32(x: torch.Tensor, K: torch.Tensor, padding=0) -> torch.Tensor:
     """``F.conv2d`` (a cross-correlation, zero padding) in float32 with TF32
     off on the card, as the JAX package convolves at HIGHEST precision."""
-    was = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        return F.conv2d(x, K, padding=padding)
-    finally:
-        torch.backends.cudnn.allow_tf32 = was
+    with FP32_LOCK:
+        was = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            return F.conv2d(x, K, padding=padding)
+        finally:
+            torch.backends.cudnn.allow_tf32 = was
 
 
 def srgb2linear(srgb: torch.Tensor) -> torch.Tensor:

@@ -207,6 +207,16 @@ class fvvdp_video_source_dm(fvvdp_video_source):
             raise RuntimeError(
                 "display_photometry must be a string or fvvdp_display_photometry subclass")
 
+    def frames_to_luminance(self, frames: torch.Tensor) -> torch.Tensor:
+        """(n, C, H, W) display-encoded frames (C = 1 or 3; uint8, 16-bit
+        as int16, or float) -> (n, H, W) absolute luminance, on the frames'
+        device."""
+        frames = torch.as_tensor(frames)
+        if frames.dtype == torch.uint16:
+            frames = frames.view(torch.int16)     # 16-bit values travel as int16
+        return _luminance_cfirst(frames.transpose(0, 1), self.dm_photometry,
+                                 self.color_to_luminance)
+
 
 # types that go to the device as they are stored (uint16 travels as int16);
 # others become float32 on the host

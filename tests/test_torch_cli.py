@@ -252,19 +252,20 @@ def test_unported_options_name_their_current_item(kwargs):
 
 
 def test_unported_call_options_name_their_current_item(image_pair, tmp_path):
-    """``mesh`` once raised naming item 1; now an image on a mesh of CPU
-    slots scores as without one, and only its row split over a 'space'
-    axis > 1 raises, naming its own item (queue 1 item 2).  A checkpoint
-    path, which once raised naming item 5, is ignored for an image, as the
-    JAX package ignores it."""
+    """``mesh`` once raised naming item 1, and the row split of an image
+    over a 'space' axis > 1 naming item 2; now an image on a mesh of CPU
+    slots scores as without one on either axis.  A checkpoint path, which
+    once raised naming item 5, is ignored for an image, as the JAX package
+    ignores it."""
     from fovvideovdp_tpu_torch.parallel import make_mesh
     fv = port_fvvdp(device="cpu")
     vs = run_fvvdp.fvvdp_video_source_file(*image_pair, device="cpu")
     q_one, s_one = fv.predict_video_source(vs)
     q_mesh, s_mesh = fv.predict_video_source(vs, mesh=make_mesh(["cpu"] * 2))
     assert q_mesh == q_one and np.array_equal(s_mesh["Q_per_ch"], s_one["Q_per_ch"])
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 2\b"):
-        fv.predict_video_source(vs, mesh=make_mesh(["cpu"] * 2, data_parallel=1))
+    q_sp, s_sp = fv.predict_video_source(vs, mesh=make_mesh(["cpu"] * 2, data_parallel=1))
+    np.testing.assert_allclose(q_sp, q_one, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(s_sp["Q_per_ch"], s_one["Q_per_ch"], rtol=1e-6, atol=0)
     ckpt = str(tmp_path / "state.ckpt")
     q, _ = fv.predict_video_source(vs, checkpoint_path=ckpt)
     assert q == fv.predict_video_source(vs)[0] and not os.path.exists(ckpt)

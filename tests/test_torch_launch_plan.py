@@ -110,6 +110,91 @@ def test_expand_score2_plan_for_raises_on_a_strided_tensor(which):
         bp.plan_for(args["fine"], args["coarse"], args["tables"])
 
 
+# expand_score2 on a strip of rows (a lone image split over a mesh's 'space'
+# axis): (rows of a 1080 x 1920 level, tile rows of the launch)
+STRIPS = [((0, 1080), 68), ((0, 16), 1), ((16, 1080), 67), ((1072, 1080), 1),
+          ((1071, 1080), 2), ((17, 33), 2), ((15, 16), 1), ((3, 5), 1), ((528, 544), 1)]
+
+
+@pytest.mark.parametrize("rows,down", STRIPS, ids=[f"{a}-{b}" for (a, b), _ in STRIPS])
+def test_expand_score2_strip_plan_offsets_its_tiles(rows, down):
+    """The launch covers the level's tile rows r0 // 16 .. ceil(r1 / 16) - 1,
+    on the level's grid: a strip from a tile row has the tiles of the whole
+    level's launch there, one from an odd row shares its first tile row."""
+    r0, r1 = rows
+    plan = bp.launch_plan((1, 4, 1080, 1920), 0, rows)
+    assert plan.tiles == (15, down) and plan.n_tiles == 15 * down
+    assert (r0 // bp.TILE_H) * bp.TILE_H <= r0
+    assert (r0 // bp.TILE_H + down) * bp.TILE_H >= r1 > (r0 // bp.TILE_H + down - 1) * bp.TILE_H
+    _check_groups(plan.n_tiles, plan.frames_per_group, plan.groups, 1)
+    assert bp.launch_plan((1, 4, 1080, 1920), 0, None) == bp.launch_plan(
+        (1, 4, 1080, 1920), 0, (0, 1080))
+
+
+@pytest.mark.parametrize("r0", [0, 1, 17, 33])
+@pytest.mark.parametrize("ptr,W,vec", [(0, 144, True), (16, 144, True), (4, 144, False),
+                                       (0, 131, False), (8, 132, False)])
+def test_expand_score2_strip_plan_needs_its_first_element_aligned(ptr, W, r0, vec):
+    """The vector arm reads the strip's rows four pixels at a time: its first
+    element (ptr + 4 r0 W) and every row after it on a 16-byte boundary."""
+    first = ptr + 4 * r0 * W
+    assert vec == (W % 4 == 0 and first % 16 == 0)
+    assert bp.launch_plan((2, 4, 96, W), ptr, (r0, 96)).vec == vec
+
+
+@pytest.mark.parametrize("rows", [(-1, 5), (5, 97), (6, 5)])
+def test_expand_score2_refuses_rows_outside_the_level(rows):
+    with pytest.raises(ValueError, match="rows"):
+        bp.launch_plan((1, 4, 96, 144), 0, rows)
+    fine, coarse = _rand((1, 4, 96, 144), 2), _rand((1, 4, 48, 72), 3)
+    core = fvvdp(device="cpu")._get_core(144, 96)
+    with pytest.raises(ValueError, match="rows"):
+        bp.expand_score2(fine, coarse, core._score_tables[0], core._meta[0], rows=rows)
+
+
+def test_an_empty_strip_scores_zero_and_launches_nothing():
+    fine, coarse = _rand((2, 4, 96, 144), 2), _rand((2, 4, 48, 72), 3)
+    core = fvvdp(device="cpu")._get_core(144, 96)
+    tabs, meta = core._score_tables[0], core._meta[0]
+    from fovvideovdp_tpu_torch.ops.cuda import _lib
+    _lib.reset_launch_counts()
+    got = bp.expand_score2(fine, coarse, tabs, meta, rows=(40, 40))
+    assert torch.equal(got, torch.zeros((2, 2)))
+    parts = bp.expand_score2(fine, coarse, tabs, meta, rows=(96, 96), partials=True)
+    assert parts.shape == (2, 0, 2)
+    assert torch.equal(bp.sum_tile_partials(parts), torch.zeros((2, 2)))
+    assert sum(_lib.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("rows", [(0, 96), (0, 16), (16, 96), (17, 61), (80, 96), (81, 96)])
+@pytest.mark.parametrize("hw", [(96, 144), (96, 131)])
+def test_expand_score2_plain_rows_against_the_whole_levels_slice(hw, rows):
+    """The plain version on a strip scores the rows of the whole level's
+    per-pixel D^beta; its tile partials are that map's sums over the
+    kernel's tiles, and add up to the strip's sums."""
+    H, W = hw
+    r0, r1 = rows
+    fine, coarse = _rand((2, 4, H, W), 2), _rand((2, 4, H // 2, -(-W // 2)), 3)
+    core = fvvdp(device="cpu")._get_core(max(W, 16), H)
+    for tabs, meta in zip(core._score_tables[:2], core._meta[:2]):
+        contrast, L_bkg = bp._expand_contrast_plain(fine, coarse, (H, W), 1)
+        maps = [bs.band_d_beta_plain(contrast[:, 2 * c], contrast[:, 2 * c + 1], L_bkg[:, 0],
+                                     tabs[c], meta, (meta.q_s, meta.q_t)[c]) for c in (0, 1)]
+        want = torch.stack([m[:, r0:r1].double().sum(dim=(-2, -1)) for m in maps], dim=-1)
+        got = bp.expand_score2_plain(fine, coarse, tabs, meta, rows=rows).double()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+        parts = bp.expand_score2_plain(fine, coarse, tabs, meta, rows=rows, partials=True)
+        plan = bp.launch_plan(fine.shape, 0, rows)
+        assert parts.shape == (2, plan.n_tiles, 2)
+        np.testing.assert_allclose(bp.sum_tile_partials(parts).double().numpy(),
+                                   want.numpy(), rtol=1e-6)
+        # tile (ty, tx) holds the map's rows of tile row r0 // 16 + ty
+        ty, tx = (r0 // bp.TILE_H + plan.tiles[1] - 1) - r0 // bp.TILE_H, plan.tiles[0] - 1
+        row0 = max(r0, (r0 // bp.TILE_H + ty) * bp.TILE_H)
+        last = maps[0][:, row0:r1, tx * bp.TILE_W:].double().sum(dim=(-2, -1))
+        np.testing.assert_allclose(parts[:, -1, 0].double().numpy(), last.numpy(), rtol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # mov_score
 # ---------------------------------------------------------------------------

@@ -432,13 +432,24 @@ def test_refusals_as_jax(case):
 
 
 def test_an_image_split_over_space_names_its_item():
+    """Once a refusal naming its ROADMAP item; now a lone image split by
+    rows over a 'space' axis of 2 (a 2 x 2 mesh, and two slots on 'space'
+    alone) scores as one device does, through predict and shard_image_fn
+    (tests/test_torch_space_split.py holds every route)."""
     kw, call, content = CASES["image"]
     tst, ref = content()
     fv = fv_port.fvvdp(device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=r"queue 1 item 2\b"):
-        fv.predict(tst, ref, mesh=_mesh(2), **call)
-    with pytest.raises(NotImplementedError, match="'space' axis"):
-        parallel.shard_image_fn(fv._get_core(64, 48), parallel.make_mesh(["cpu"] * 2, 1))
+    want = fv.predict(tst, ref, **call)
+    for mesh in (_mesh(2), parallel.make_mesh(["cpu"] * 2, 1)):
+        _check_self(fv.predict(tst, ref, mesh=mesh, **call), want)
+    rng = np.random.RandomState(1)
+    T = torch.as_tensor(rng.rand(48, 64).astype(np.float32) * 200 + 0.1)
+    Rf = T + 1.0
+    core = fv._get_core(64, 48)
+    Q1, _ = core.score_image(T, Rf)
+    Q2, heat = parallel.shard_image_fn(core, parallel.make_mesh(["cpu"] * 2, 1))(T, Rf)
+    assert heat is None and Q2.shape == Q1.shape
+    np.testing.assert_allclose(Q2.numpy(), Q1.numpy(), **SELF)
 
 
 # ----------------------------------------------------------------------
