@@ -1,0 +1,6 @@
+"""The port's kernel launches per scored frame (launch_counts)."""
+from fvbench import readers
+
+
+def read(ctx):
+    return readers.launches_per(ctx, ctx.frames)
