@@ -47,6 +47,7 @@ from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda import expand_contrast as ec
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.pyramid import PyramidPlan, gausspyr_expand
+from fovvideovdp_tpu_torch.tracing import span
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 
 
@@ -801,12 +802,13 @@ class MetricCore:
         ``keep(heat)`` takes each chunk's heatmap (None without one)."""
         Q = torch.empty((self.plan.height, 2, n), dtype=torch.float32, device=self.device)
         for pos in range(0, n, chunk):
-            b = min(chunk, n - pos)
-            Q[:, :, pos:pos + b], heat = self.score_frames(
-                torch.stack(frames(pos, b), dim=1), 1, fov_tables,
-                None if gaze is None else gaze[pos:pos + b])
-            if keep is not None:
-                keep(heat)
+            with span("fvvdp.chunk"):
+                b = min(chunk, n - pos)
+                Q[:, :, pos:pos + b], heat = self.score_frames(
+                    torch.stack(frames(pos, b), dim=1), 1, fov_tables,
+                    None if gaze is None else gaze[pos:pos + b])
+                if keep is not None:
+                    keep(heat)
         return Q
 
     def score_video(self, block: Callable, indexed: Callable, n_frames: int,
@@ -834,20 +836,21 @@ class MetricCore:
                             device=self.device)
         carry_t, carry_r = indexed(pad_idx[:fl - 1]) if carry is None else carry
         for pos in range(start, n_frames, B):
-            b = min(B, n_frames - pos)
-            blk = stream_idx[pos:pos + b]
-            if np.array_equal(blk, np.arange(pos, pos + b)):
-                new_t, new_r = block(pos, b)
-            else:  # circular/pingpong padding reorders the first frames
-                new_t, new_r = indexed(blk)
-            Q_blk, heat, carry_t, carry_r = self.video_step(
-                carry_t, carry_r, new_t, new_r, taps, fov_tables,
-                None if gaze is None else gaze[pos:pos + b])
-            Q[:, :, pos:pos + b] = Q_blk
-            if keep is not None:
-                keep(heat)
-            if after_block is not None:
-                after_block(pos + b, Q, lambda: (carry_t, carry_r))
+            with span("fvvdp.chunk"):
+                b = min(B, n_frames - pos)
+                blk = stream_idx[pos:pos + b]
+                if np.array_equal(blk, np.arange(pos, pos + b)):
+                    new_t, new_r = block(pos, b)
+                else:  # circular/pingpong padding reorders the first frames
+                    new_t, new_r = indexed(blk)
+                Q_blk, heat, carry_t, carry_r = self.video_step(
+                    carry_t, carry_r, new_t, new_r, taps, fov_tables,
+                    None if gaze is None else gaze[pos:pos + b])
+                Q[:, :, pos:pos + b] = Q_blk
+                if keep is not None:
+                    keep(heat)
+                if after_block is not None:
+                    after_block(pos + b, Q, lambda: (carry_t, carry_r))
         return Q
 
     def video_step(self, carry_t, carry_r, new_t, new_r, taps: torch.Tensor,

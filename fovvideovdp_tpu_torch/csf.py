@@ -23,6 +23,7 @@ import torch
 
 from fovvideovdp_tpu_torch import csf_generator, utils
 from fovvideovdp_tpu_torch.ops.interp import interp3
+from fovvideovdp_tpu_torch.tracing import free_device_bytes
 
 LUT_FIELDS = ("Y", "rho", "ecc", "Y_log", "rho_log", "ecc_sqrt", "S_log")
 
@@ -272,7 +273,7 @@ def _pixel_chunk(n: int, device: torch.device) -> int:
     CPU 64 MB."""
     per_px = 4 * n * n + 16 * n
     if device.type == "cuda":
-        budget = torch.cuda.mem_get_info(device)[0] // 8
+        budget = free_device_bytes(device) // 8
     else:
         budget = 64 << 20
     return int(max(1024, min(budget // per_px, 1 << 22)))

@@ -50,6 +50,7 @@ from fovvideovdp_tpu_torch.parallel.sharding import (make_batch_scorer, make_bat
                                                      make_mesh, replicas, score_video_mesh,
                                                      shard_image_fn, split_rows,
                                                      tables_on_cards)
+from fovvideovdp_tpu_torch.tracing import free_device_bytes, span
 from fovvideovdp_tpu_torch.video_source import (PairBatch, channels_to_luminance,
                                                 fvvdp_video_source_array, reshuffle_dims,
                                                 resolve_device, rgb_to_y)
@@ -281,8 +282,8 @@ class fvvdp:
         dev = self.device if device is None else device
         if dev.type != "cuda":
             return None
-        free, _ = torch.cuda.mem_get_info(dev)
-        return free + torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        return (free_device_bytes(dev) + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
 
     def _slot_free_bytes(self, device=None, slots: int = 1):
         """The free memory of ``device``'s card (the metric's by default)
@@ -361,7 +362,7 @@ class fvvdp:
         card's free memory (no limit on the CPU)."""
         if self.device.type != "cuda":
             return None
-        return torch.cuda.mem_get_info(self.device)[0] // 2
+        return free_device_bytes(self.device) // 2
 
     def _check_device_heatmap_budget(self, n_frames, height, width):
         """Whole-video device heatmaps accumulate in device memory: refuse a
@@ -412,146 +413,150 @@ class fvvdp:
         scoring its strip of every level (``parallel.shard_image_fn``); a
         foveated lone image and the ``do_temporal_channels=False`` ablation
         are refused under a mesh, as the JAX package refuses them."""
-        height, width, N_frames = vid_source.get_video_size()
-        if mesh is not None and mesh.size == 1:
-            mesh = None    # one device: the one-device path (fovvideovdp_tpu/fvvdp.py:283-286)
-        if mesh is not None and N_frames == 1 and self.foveated:
-            # refusing beats a silent fall back to one of the devices
-            raise RuntimeError(
-                "predict(mesh=...) does not shard single foveated "
-                "images; score it without a mesh, or shard many "
-                "foveated images with predict_batch(mesh=...)")
-        if mesh is not None and N_frames > 1 and not self.do_temporal_channels:
-            raise RuntimeError(
-                "predict(mesh=...) does not shard the "
-                "do_temporal_channels=False ablation path; run it "
-                "without a mesh (a silent single-device fallback would "
-                "waste the requested hardware)")
+        with span("fvvdp.predict_video_source"):
+            height, width, N_frames = vid_source.get_video_size()
+            if mesh is not None and mesh.size == 1:
+                mesh = None    # one device: the one-device path (fovvideovdp_tpu/fvvdp.py:283-286)
+            if mesh is not None and N_frames == 1 and self.foveated:
+                # refusing beats a silent fall back to one of the devices
+                raise RuntimeError(
+                    "predict(mesh=...) does not shard single foveated "
+                    "images; score it without a mesh, or shard many "
+                    "foveated images with predict_batch(mesh=...)")
+            if mesh is not None and N_frames > 1 and not self.do_temporal_channels:
+                raise RuntimeError(
+                    "predict(mesh=...) does not shard the "
+                    "do_temporal_channels=False ablation path; run it "
+                    "without a mesh (a silent single-device fallback would "
+                    "waste the requested hardware)")
 
-        if fixation_point is None:
-            fixation_point = np.array([width // 2, height // 2])
-        fixation_point = np.asarray(fixation_point, dtype=np.float32)
-        if fixation_point.ndim == 2 and fixation_point.shape[0] < N_frames:
-            raise RuntimeError(
-                f"fixation_point has {fixation_point.shape[0]} per-frame "
-                f"rows but the video has {N_frames} frames; pass one (x, y) "
-                f"point or at least one row per frame")
-        fov_tables = None
-        gaze = None                  # (N_frames, 2) tensor: the moving route
-        point = None                 # a fixed fixation point: tables
-        core = self._get_core(width, height)
-        if self.foveated and fixation_point.shape == (2,) \
-                and self.content_mapping is not None:
-            # the mapping's eccentricity depends on the gaze: no tables are
-            # built, the point is a gaze per frame (fovvideovdp_tpu/fvvdp.py:298-303)
-            fixation_point = np.broadcast_to(fixation_point, (N_frames, 2))
-        if self.foveated:
-            if fixation_point.ndim == 2 and fixation_point.shape[1] == 2:
-                # this route reads no fixed-gaze tables; an earlier call may
-                # have left GB of them on the card
-                core.drop_fov_tables()
-                gaze = torch.as_tensor(np.array(fixation_point[:N_frames]), device=self.device)
-            elif fixation_point.shape == (2,):
-                point = (float(fixation_point[0]), float(fixation_point[1]))
-                # under a mesh, built on each card below
-                fov_tables = core.fov_tables(point) if mesh is None else None
+            if fixation_point is None:
+                fixation_point = np.array([width // 2, height // 2])
+            fixation_point = np.asarray(fixation_point, dtype=np.float32)
+            if fixation_point.ndim == 2 and fixation_point.shape[0] < N_frames:
+                raise RuntimeError(
+                    f"fixation_point has {fixation_point.shape[0]} per-frame "
+                    f"rows but the video has {N_frames} frames; pass one (x, y) "
+                    f"point or at least one row per frame")
+            fov_tables = None
+            gaze = None                  # (N_frames, 2) tensor: the moving route
+            point = None                 # a fixed fixation point: tables
+            core = self._get_core(width, height)
+            if self.foveated and fixation_point.shape == (2,) \
+                    and self.content_mapping is not None:
+                # the mapping's eccentricity depends on the gaze: no tables are
+                # built, the point is a gaze per frame (fovvideovdp_tpu/fvvdp.py:298-303)
+                fixation_point = np.broadcast_to(fixation_point, (N_frames, 2))
+            if self.foveated:
+                if fixation_point.ndim == 2 and fixation_point.shape[1] == 2:
+                    # this route reads no fixed-gaze tables; an earlier call may
+                    # have left GB of them on the card
+                    core.drop_fov_tables()
+                    gaze = torch.as_tensor(np.array(fixation_point[:N_frames]), device=self.device)
+                elif fixation_point.shape == (2,):
+                    point = (float(fixation_point[0]), float(fixation_point[1]))
+                    # under a mesh, built on each card below
+                    fov_tables = core.fov_tables(point) if mesh is None else None
+                else:
+                    raise ValueError(
+                        f"fixation_point must be one (x, y) point or an (N, 2) array of "
+                        f"per-frame points, got shape {fixation_point.shape}")
+            route = _memory_route(core, gaze is not None)
+            plan = core.plan
+            if self.do_heatmap and self.device_heatmap:
+                self._check_device_heatmap_budget(N_frames, height, width)
+            heat_blocks = []   # (b, c, H, W) per block: tensors, or arrays on the host
+
+            def keep(heat):
+                if heat is not None:
+                    heat_blocks.append(heat if self.device_heatmap else heat.cpu().numpy())
+
+            def on_device(pair):
+                # a per-frame source may give its frames on another device; log
+                # contrast scores log10 luminance
+                return tuple(self._encode(x.to(self.device, torch.float32)) for x in pair)
+
+            def block(start, count):
+                with span("fvvdp.luminance"):
+                    return on_device(vid_source.get_luminance_block(start, count))
+
+            if checkpoint_path and (N_frames == 1 or not self.do_temporal_channels):
+                logging.warning("checkpoint_path applies to the streaming video "
+                                "path only; ignored for this input")
+            if N_frames == 1:
+                t, r = block(0, 1)
+                if mesh is not None:
+                    Q_per_ch, heat = shard_image_fn(core, mesh)(t[0], r[0])
+                else:
+                    Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
+                keep(heat)
+            elif not self.do_temporal_channels:
+                # the ablation (fovvideovdp_tpu/fvvdp.py:389-430): every frame
+                # scored as an independent image, so no temporal kernel runs and
+                # the transient rows are exactly 0
+                staged = vid_source.host_block_bytes(1)
+                chunk = self._pick_chunk(height, width, N_frames, 1, route,
+                                         _IMAGE_STACK_BYTES + -(-staged // (height * width)))
+                if staged:
+                    # frames streamed from the host: the prefetched next chunk is
+                    # on the card (counted above) and each chunk passes through a
+                    # pinned buffer, so chunks stay a streamed block's size
+                    chunk = min(chunk, _MAX_BLOCK_FRAMES)
+                Q_per_ch = core.score_frame_pairs(block, N_frames, chunk, fov_tables, gaze, keep)
             else:
-                raise ValueError(
-                    f"fixation_point must be one (x, y) point or an (N, 2) array of "
-                    f"per-frame points, got shape {fixation_point.shape}")
-        route = _memory_route(core, gaze is not None)
-        plan = core.plan
-        if self.do_heatmap and self.device_heatmap:
-            self._check_device_heatmap_budget(N_frames, height, width)
-        heat_blocks = []   # (b, c, H, W) per block: tensors, or arrays on the host
+                fps = vid_source.get_frames_per_second()
+                fl = temporal_ops.filter_len_for_fps(fps)
+                taps = torch.as_tensor(temporal_ops.temporal_filters(
+                    fps, fl, self.sustained_sigma, self.sustained_beta), device=self.device)
+                # the raw frames of the next block, which a host-resident source
+                # prefetches onto the card while this one is scored
+                staged = -(-vid_source.host_block_bytes(1) // (height * width))
+                resume = {}
+                if checkpoint_path:
+                    resume = self._checkpointing(vid_source, checkpoint_path, checkpoint_every,
+                                                 core, fl, fps, fixation_point)
+                def indexed(idx):
+                    with span("fvvdp.luminance"):
+                        return on_device(vid_source.get_indexed_luminance_block(idx))
 
-        def keep(heat):
-            if heat is not None:
-                heat_blocks.append(heat if self.device_heatmap else heat.cpu().numpy())
+                pad_idx = temporal_ops.padding_indices(N_frames, fl, self.temp_padding)
+                if mesh is None:
+                    B = self._pick_block_size(height, width, N_frames, route, staged)
+                    Q_per_ch = core.score_video(block, indexed, N_frames, taps, pad_idx, B,
+                                                fov_tables, gaze, keep, **resume)
+                else:
+                    tables = None if point is None else tables_on_cards(core, mesh, point)
+                    frames_at = None
+                    if vid_source.luminance_at is not None:
+                        def frames_at(idx, dev):
+                            with span("fvvdp.luminance"):
+                                return tuple(self._encode(x.to(dev, torch.float32))
+                                             for x in vid_source.luminance_at(idx, dev))
+                    B = self._pick_mesh_block(height, width, N_frames, mesh, route, staged)
+                    Q_per_ch = score_video_mesh(mesh, core, block, indexed, N_frames, taps, pad_idx,
+                                                B, tables, gaze, keep, frames_at=frames_at,
+                                                **resume)
+                if checkpoint_path and os.path.isfile(checkpoint_path):
+                    os.remove(checkpoint_path)
 
-        def on_device(pair):
-            # a per-frame source may give its frames on another device; log
-            # contrast scores log10 luminance
-            return tuple(self._encode(x.to(self.device, torch.float32)) for x in pair)
-
-        def block(start, count):
-            return on_device(vid_source.get_luminance_block(start, count))
-
-        if checkpoint_path and (N_frames == 1 or not self.do_temporal_channels):
-            logging.warning("checkpoint_path applies to the streaming video "
-                            "path only; ignored for this input")
-        if N_frames == 1:
-            t, r = block(0, 1)
-            if mesh is not None:
-                Q_per_ch, heat = shard_image_fn(core, mesh)(t[0], r[0])
-            else:
-                Q_per_ch, heat = core.score_image(t[0], r[0], fov_tables, gaze)
-            keep(heat)
-        elif not self.do_temporal_channels:
-            # the ablation (fovvideovdp_tpu/fvvdp.py:389-430): every frame
-            # scored as an independent image, so no temporal kernel runs and
-            # the transient rows are exactly 0
-            staged = vid_source.host_block_bytes(1)
-            chunk = self._pick_chunk(height, width, N_frames, 1, route,
-                                     _IMAGE_STACK_BYTES + -(-staged // (height * width)))
-            if staged:
-                # frames streamed from the host: the prefetched next chunk is
-                # on the card (counted above) and each chunk passes through a
-                # pinned buffer, so chunks stay a streamed block's size
-                chunk = min(chunk, _MAX_BLOCK_FRAMES)
-            Q_per_ch = core.score_frame_pairs(block, N_frames, chunk, fov_tables, gaze, keep)
-        else:
-            fps = vid_source.get_frames_per_second()
-            fl = temporal_ops.filter_len_for_fps(fps)
-            taps = torch.as_tensor(temporal_ops.temporal_filters(
-                fps, fl, self.sustained_sigma, self.sustained_beta), device=self.device)
-            # the raw frames of the next block, which a host-resident source
-            # prefetches onto the card while this one is scored
-            staged = -(-vid_source.host_block_bytes(1) // (height * width))
-            resume = {}
-            if checkpoint_path:
-                resume = self._checkpointing(vid_source, checkpoint_path, checkpoint_every,
-                                             core, fl, fps, fixation_point)
-            def indexed(idx):
-                return on_device(vid_source.get_indexed_luminance_block(idx))
-
-            pad_idx = temporal_ops.padding_indices(N_frames, fl, self.temp_padding)
-            if mesh is None:
-                B = self._pick_block_size(height, width, N_frames, route, staged)
-                Q_per_ch = core.score_video(block, indexed, N_frames, taps, pad_idx, B,
-                                            fov_tables, gaze, keep, **resume)
-            else:
-                tables = None if point is None else tables_on_cards(core, mesh, point)
-                frames_at = None
-                if vid_source.luminance_at is not None:
-                    def frames_at(idx, dev):
-                        return tuple(self._encode(x.to(dev, torch.float32))
-                                     for x in vid_source.luminance_at(idx, dev))
-                B = self._pick_mesh_block(height, width, N_frames, mesh, route, staged)
-                Q_per_ch = score_video_mesh(mesh, core, block, indexed, N_frames, taps, pad_idx,
-                                            B, tables, gaze, keep, frames_at=frames_at,
-                                            **resume)
-            if checkpoint_path and os.path.isfile(checkpoint_path):
-                os.remove(checkpoint_path)
-
-        Q_jod = self.do_pooling_and_jods(Q_per_ch)
-        stats = {
-            "Q_per_ch": Q_per_ch.cpu().numpy(),
-            "rho_band": plan.get_freqs(),
-            "frames_per_second": vid_source.get_frames_per_second(),
-            "width": width,
-            "height": height,
-            "N_frames": N_frames,
-        }
-        if self.do_heatmap:
-            # (1, c, F, H, W): float16 (the reference's layout and type) or
-            # uint8; a tensor on the device with device_heatmap, else numpy
-            if self.device_heatmap:
-                stats["heatmap"] = torch.cat(heat_blocks, dim=0).permute(1, 0, 2, 3)[None]
-            else:
-                stats["heatmap"] = np.concatenate(heat_blocks, axis=0).transpose(
-                    1, 0, 2, 3)[None]
-        return float(Q_jod), stats
+            Q_jod = self.do_pooling_and_jods(Q_per_ch)
+            stats = {
+                "Q_per_ch": Q_per_ch.cpu().numpy(),
+                "rho_band": plan.get_freqs(),
+                "frames_per_second": vid_source.get_frames_per_second(),
+                "width": width,
+                "height": height,
+                "N_frames": N_frames,
+            }
+            if self.do_heatmap:
+                # (1, c, F, H, W): float16 (the reference's layout and type) or
+                # uint8; a tensor on the device with device_heatmap, else numpy
+                if self.device_heatmap:
+                    stats["heatmap"] = torch.cat(heat_blocks, dim=0).permute(1, 0, 2, 3)[None]
+                else:
+                    stats["heatmap"] = np.concatenate(heat_blocks, axis=0).transpose(
+                        1, 0, 2, 3)[None]
+            return float(Q_jod), stats
 
     # ------------------------------------------------------------------
     # checkpoint and resume of the streaming loop
@@ -686,73 +691,74 @@ class fvvdp:
         Returns (Q_JOD (N,) np.ndarray, stats): "width", "height",
         "N_frames", "N_pairs", "frames_per_second", and for clips
         "Q_per_ch" (n_bands, 2, N, F)."""
-        gaze_mode = None  # None | "tables" (one shared point) | "per_pair"
-        if self.foveated:
-            if self.content_mapping is not None:
-                raise RuntimeError("predict_batch does not support foveated content mapping")
-            fp = np.asarray([0, 0] if fixation_point is None else fixation_point,
-                            dtype=np.float32)
-            if fp.ndim == 1 and fp.shape[0] == 2:
-                gaze_mode = "tables"
-            elif fp.ndim in (2, 3) and fp.shape[-1] == 2:
-                gaze_mode = "per_pair"
-            else:
-                raise RuntimeError("fixation_point must be (x, y) shared by all pairs, "
-                                   "(N, 2) per pair, or (N, F, 2) per frame")
-        if "B" not in dim_order.upper():
-            raise RuntimeError("predict_batch needs a batch axis; include 'B' in dim_order")
-        N, _, F, H, W = PairBatch.batch_shape(test_conts, reference_conts, dim_order,
-                                              frames_per_second)
-        n_proc = multihost.process_count()
-        if n_proc > 1:
-            # unequal counts would misplace the gathered rows: checked first,
-            # in the JAX package's words (fovvideovdp_tpu/fvvdp.py:1047-1057)
-            multihost.local_batch_to_global(N)
-        if mesh is None and self.device.type == "cuda" and self.device.index is None:
-            mesh = make_mesh()
-        if mesh is not None and mesh.size == 1 and card(mesh.slots[0]) == card(self.device):
-            mesh = None
-        pairs = None
-        if mesh is None:
-            pairs = PairBatch(test_conts, reference_conts, dim_order, frames_per_second,
-                              self.display_photometry, rgb_to_y(self.color_space),
-                              self.device, encode=self._encode)
+        with span("fvvdp.predict_batch"):
+            gaze_mode = None  # None | "tables" (one shared point) | "per_pair"
+            if self.foveated:
+                if self.content_mapping is not None:
+                    raise RuntimeError("predict_batch does not support foveated content mapping")
+                fp = np.asarray([0, 0] if fixation_point is None else fixation_point,
+                                dtype=np.float32)
+                if fp.ndim == 1 and fp.shape[0] == 2:
+                    gaze_mode = "tables"
+                elif fp.ndim in (2, 3) and fp.shape[-1] == 2:
+                    gaze_mode = "per_pair"
+                else:
+                    raise RuntimeError("fixation_point must be (x, y) shared by all pairs, "
+                                       "(N, 2) per pair, or (N, F, 2) per frame")
+            if "B" not in dim_order.upper():
+                raise RuntimeError("predict_batch needs a batch axis; include 'B' in dim_order")
+            N, _, F, H, W = PairBatch.batch_shape(test_conts, reference_conts, dim_order,
+                                                  frames_per_second)
+            n_proc = multihost.process_count()
+            if n_proc > 1:
+                # unequal counts would misplace the gathered rows: checked first,
+                # in the JAX package's words (fovvideovdp_tpu/fvvdp.py:1047-1057)
+                multihost.local_batch_to_global(N)
+            if mesh is None and self.device.type == "cuda" and self.device.index is None:
+                mesh = make_mesh()
+            if mesh is not None and mesh.size == 1 and card(mesh.slots[0]) == card(self.device):
+                mesh = None
+            pairs = None
+            if mesh is None:
+                pairs = PairBatch(test_conts, reference_conts, dim_order, frames_per_second,
+                                  self.display_photometry, rgb_to_y(self.color_space),
+                                  self.device, encode=self._encode)
 
-        core = self._get_core(W, H, with_heatmap=False)
-        route = _memory_route(core, gaze_mode == "per_pair")
-        fov_tables = gaze = None
-        if gaze_mode == "tables":
-            if fixation_point is None:
-                fp = np.asarray([W // 2, H // 2], dtype=np.float32)
-            point = (float(fp[0]), float(fp[1]))
-            fov_tables = core.fov_tables(point) if mesh is None \
-                else tables_on_cards(core, mesh, point)
-        elif gaze_mode == "per_pair":
-            if fp.shape[0] != N:
-                raise RuntimeError(f"fixation_point has {fp.shape[0]} rows for {N} pairs")
-            # a row per output frame of each pair
-            gaze_b = np.broadcast_to(fp[:, None, :] if fp.ndim == 2 else fp, (N, F, 2))
-            core.drop_fov_tables()
-            gaze = torch.as_tensor(np.array(gaze_b, dtype=np.float32), device=self.device)
-        stats = {"width": W, "height": H, "N_frames": F, "N_pairs": N,
-                 "frames_per_second": frames_per_second}
-        if mesh is None:
-            jods, Q_per_ch = self._score_pairs(core, pairs, route, fov_tables, gaze)
-        else:
-            jods, Q_per_ch = self._score_pairs_on_mesh(
-                mesh, core, test_conts, reference_conts, dim_order, frames_per_second, N, route,
-                fov_tables, gaze)
-        jods = jods.cpu()
-        if n_proc > 1:
-            # every process's rows gathered over the group, then this one's
-            rows = torch.as_tensor(multihost.local_row_positions(N * n_proc))
-            jods = multihost.replicate_to_hosts(jods)[rows]
+            core = self._get_core(W, H, with_heatmap=False)
+            route = _memory_route(core, gaze_mode == "per_pair")
+            fov_tables = gaze = None
+            if gaze_mode == "tables":
+                if fixation_point is None:
+                    fp = np.asarray([W // 2, H // 2], dtype=np.float32)
+                point = (float(fp[0]), float(fp[1]))
+                fov_tables = core.fov_tables(point) if mesh is None \
+                    else tables_on_cards(core, mesh, point)
+            elif gaze_mode == "per_pair":
+                if fp.shape[0] != N:
+                    raise RuntimeError(f"fixation_point has {fp.shape[0]} rows for {N} pairs")
+                # a row per output frame of each pair
+                gaze_b = np.broadcast_to(fp[:, None, :] if fp.ndim == 2 else fp, (N, F, 2))
+                core.drop_fov_tables()
+                gaze = torch.as_tensor(np.array(gaze_b, dtype=np.float32), device=self.device)
+            stats = {"width": W, "height": H, "N_frames": F, "N_pairs": N,
+                     "frames_per_second": frames_per_second}
+            if mesh is None:
+                jods, Q_per_ch = self._score_pairs(core, pairs, route, fov_tables, gaze)
+            else:
+                jods, Q_per_ch = self._score_pairs_on_mesh(
+                    mesh, core, test_conts, reference_conts, dim_order, frames_per_second, N, route,
+                    fov_tables, gaze)
+            jods = jods.cpu()
+            if n_proc > 1:
+                # every process's rows gathered over the group, then this one's
+                rows = torch.as_tensor(multihost.local_row_positions(N * n_proc))
+                jods = multihost.replicate_to_hosts(jods)[rows]
+                if Q_per_ch is not None:
+                    Q_per_ch = multihost.replicate_to_hosts(Q_per_ch, axis=2)[:, :, rows]
+                stats["n_processes"] = n_proc
             if Q_per_ch is not None:
-                Q_per_ch = multihost.replicate_to_hosts(Q_per_ch, axis=2)[:, :, rows]
-            stats["n_processes"] = n_proc
-        if Q_per_ch is not None:
-            stats["Q_per_ch"] = Q_per_ch.cpu().numpy()
-        return jods.numpy(), stats
+                stats["Q_per_ch"] = Q_per_ch.cpu().numpy()
+            return jods.numpy(), stats
 
     def _score_pairs(self, core: MetricCore, pairs, route: str, fov_tables, gaze,
                      device=None, slots: int = 1):

@@ -35,6 +35,8 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from fovvideovdp_tpu_torch.tracing import free_device_bytes
+
 # share of the free device memory one chunk of the recompute may take
 _RECOMPUTE_MEM_SHARE = 0.5
 # what a chunk may take on the CPU
@@ -87,9 +89,9 @@ def recompute_frames(op: KernelOp, args: Sequence) -> Optional[int]:
                                      if t.shape[0] > 0)
     dev = framed[0].device
     if dev.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(dev)
         # memory the caching allocator holds but no tensor uses is free too
-        free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        free = (free_device_bytes(dev) + torch.cuda.memory_reserved(dev)
+                - torch.cuda.memory_allocated(dev))
         budget = _RECOMPUTE_MEM_SHARE * free
     else:
         budget = _CPU_RECOMPUTE_BYTES

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from fovvideovdp_tpu_torch import utils
+from fovvideovdp_tpu_torch.tracing import span
 
 
 def apply_masking_model(T, R, N_nCSF, p: float, q: float, mask_c: float,
@@ -53,13 +54,14 @@ def pool_to_jod(Q_per_ch: torch.Tensor, w_transient: float, beta_sch: float,
     for N pairs, each pooled on its own (the JAX package ``vmap``s this
     function over pairs, ``fovvideovdp_tpu/parallel/sharding.py:359-364``).
     Returns a 0-d float32 tensor, or (N,), on Q_per_ch's device."""
-    w = torch.tensor([1.0, w_transient], dtype=Q_per_ch.dtype,
-                     device=Q_per_ch.device).reshape((1, 2) + (1,) * (Q_per_ch.dim() - 2))
-    Q_sc = lp_norm(Q_per_ch * w, beta_sch, dim=0, normalize=False)
-    Q_tc = lp_norm(Q_sc, beta_tch, dim=1, normalize=False)
-    Q = lp_norm(Q_tc, beta_t, dim=-1, normalize=True)
-    Q = Q.reshape(Q_per_ch.shape[2:-1])
+    with span("fvvdp.pool"):
+        w = torch.tensor([1.0, w_transient], dtype=Q_per_ch.dtype,
+                         device=Q_per_ch.device).reshape((1, 2) + (1,) * (Q_per_ch.dim() - 2))
+        Q_sc = lp_norm(Q_per_ch * w, beta_sch, dim=0, normalize=False)
+        Q_tc = lp_norm(Q_sc, beta_tch, dim=1, normalize=False)
+        Q = lp_norm(Q_tc, beta_t, dim=-1, normalize=True)
+        Q = Q.reshape(Q_per_ch.shape[2:-1])
 
-    sign = 1.0 if jod_a >= 0 else -1.0
-    beta_jod = 10.0 ** log_jod_exp
-    return sign * torch.pow(abs(jod_a) ** (1.0 / beta_jod) * Q, beta_jod) + 10.0
+        sign = 1.0 if jod_a >= 0 else -1.0
+        beta_jod = 10.0 ** log_jod_exp
+        return sign * torch.pow(abs(jod_a) ** (1.0 / beta_jod) * Q, beta_jod) + 10.0

@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from fovvideovdp_tpu_torch.tracing import span
 from fovvideovdp_tpu_torch.video_source import resolve_device
 
 _local_device_ids: Optional[List[int]] = None
@@ -92,7 +93,8 @@ def replicate_to_hosts(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     if process_count() == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(process_count())]
-    dist.all_gather(parts, x)
+    with span("fvvdp.gather"):
+        dist.all_gather(parts, x)
     return torch.cat(parts, dim=axis)
 
 

@@ -49,6 +49,7 @@ from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import _lib
 from fovvideovdp_tpu_torch.parallel import multihost
+from fovvideovdp_tpu_torch.tracing import span
 from fovvideovdp_tpu_torch.video_source import resolve_device
 
 class Mesh:
@@ -487,17 +488,19 @@ def make_batch_video_scorer(core: MetricCore, pairs, filt: np.ndarray, pool_para
         idx = torch.as_tensor(pad_idx, dtype=torch.int64, device=device)
         empty = torch.empty((0, H, W), dtype=torch.float32, device=device)
         for pos in range(0, N, chunk):
-            n = min(chunk, N - pos)
-            lum_t, lum_r = pairs.luminance(pos, n)
-            R = torch.empty((n * F, 4, H, W), dtype=torch.float32, device=device)
-            for i in range(n):
-                temporal_ops.temporal_channels_pair(empty, lum_t[i][idx], empty, lum_r[i][idx],
-                                                    taps, out=R[i * F:(i + 1) * F])
-            del lum_t, lum_r
-            Q_chunk, _ = core.score_frames(
-                R, 2, fov_tables, None if gaze is None else gaze[pos:pos + n].reshape(-1, 2))
-            del R
-            Q[:, :, pos:pos + n] = Q_chunk.reshape(-1, 2, n, F)
+            with span("fvvdp.chunk"):
+                n = min(chunk, N - pos)
+                lum_t, lum_r = pairs.luminance(pos, n)
+                R = torch.empty((n * F, 4, H, W), dtype=torch.float32, device=device)
+                for i in range(n):
+                    temporal_ops.temporal_channels_pair(empty, lum_t[i][idx], empty,
+                                                        lum_r[i][idx], taps,
+                                                        out=R[i * F:(i + 1) * F])
+                del lum_t, lum_r
+                Q_chunk, _ = core.score_frames(
+                    R, 2, fov_tables, None if gaze is None else gaze[pos:pos + n].reshape(-1, 2))
+                del R
+                Q[:, :, pos:pos + n] = Q_chunk.reshape(-1, 2, n, F)
     else:
         for i in range(N):
             def frames(sel, i=i):

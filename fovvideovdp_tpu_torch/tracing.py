@@ -1,0 +1,51 @@
+"""Spans of the port's stages, on the profiler's clock.
+
+``span(name)`` marks a stage of a call in the host timeline of a recording
+``torch.profiler``, as a ``record_function`` range; with no profiler
+recording it returns one shared no-op context, and the check is its whole
+cost.  The profiler stamps its host events on the clock it converts the
+device's kernels and copies to, so a trace shows which stage launched each
+kernel and which stage the host was in while the card sat idle; spans of one
+thread nest by time, under the call's entry span.  The trace is the one
+export: run a call under ``torch.profiler.profile`` and read its events or
+``export_chrome_trace``.
+
+The spans, all named ``fvvdp.<stage>`` and none inside a per-level loop or a
+kernel wrapper (the device trace names the kernels):
+
+* ``fvvdp.predict_video_source``, ``fvvdp.predict_batch``: each entry call;
+* ``fvvdp.chunk``: one block of a video streamed on one card, or one chunk
+  of independent frames, images or clips;
+* ``fvvdp.luminance``: raw frames to the luminance the core scores (a file
+  source's reader included);
+* ``fvvdp.mem_query``: each query of the card's free memory
+  (:func:`free_device_bytes`);
+* ``fvvdp.pool``: the pooling to JOD;
+* ``fvvdp.gather``: the gather of results over the processes of a group.
+
+The slots of a mesh run in threads that a profiler started in the caller's
+thread does not follow; their stages carry no span.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` in the trace of a recording profiler;
+    the shared no-op context when none records."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.autograd.profiler.record_function(name)
+
+
+def free_device_bytes(device) -> int:
+    """The free memory of ``device``'s card in bytes, as
+    ``torch.cuda.mem_get_info`` reads it: every query of the port goes
+    through here, under the ``fvvdp.mem_query`` span."""
+    with span("fvvdp.mem_query"):
+        return torch.cuda.mem_get_info(device)[0]

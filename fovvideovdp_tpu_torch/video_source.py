@@ -25,6 +25,7 @@ import torch
 
 from fovvideovdp_tpu_torch import utils
 from fovvideovdp_tpu_torch.display_model import fvvdp_display_photometry
+from fovvideovdp_tpu_torch.tracing import free_device_bytes, span
 
 
 def reshuffle_dims(arr: torch.Tensor, in_dims: str, out_dims: str) -> torch.Tensor:
@@ -422,7 +423,7 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
             return cls.DEVICE_PRELOAD_LIMIT_BYTES
         if device.type != "cuda":
             return float("inf")
-        return DEVICE_PRELOAD_SHARE * torch.cuda.mem_get_info(device)[0]
+        return DEVICE_PRELOAD_SHARE * free_device_bytes(device)
 
     def get_frames_per_second(self):
         return self.fps
@@ -653,7 +654,8 @@ class PairBatch:
         """(count, n, H, W) float32 test and reference luminance of pairs
         start..start+count-1 on the device: all F frames, or those at
         ``frames`` (a slice, or an index array for the temporal padding)."""
-        return tuple(
-            self._encode(_luminance_cfirst(self._raw(x, start, count, frames).transpose(0, 1),
-                                           self._dm, self._rgb2y))
-            for x in (self._t, self._r))
+        with span("fvvdp.luminance"):
+            return tuple(
+                self._encode(_luminance_cfirst(self._raw(x, start, count, frames).transpose(0, 1),
+                                               self._dm, self._rgb2y))
+                for x in (self._t, self._r))
