@@ -16,7 +16,11 @@ Phases, each raising on failure:
      band scorers on both arms (16-byte loads at the 4K levels; 4-byte loads
      on an odd width, an odd pixel count and views that start off a 16-byte
      boundary), with the registers nvcc -Xptxas -v reported and the SASS
-     instructions per pixel(-frame) or output from cuobjdump;
+     instructions per pixel(-frame) or output from cuobjdump; the
+     luminance stage bit for bit on a 32-frame 4K RGB block (planar) and on
+     kadid-batch's chunk of 3,375 512x384 pairs (interleaved), beside its
+     byte bound and the plain version, then its scalar arm, a grey block and
+     16-bit codes;
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
@@ -199,6 +203,11 @@ pageable copy, the package's staged copy at three chunk sizes, a page-locked
 caller buffer), the host transpose of that pair, and the source's build
 resident and host-resident; one JSON line.
 
+    python3 chip_smoke.py --luminance
+
+runs phases 1, 2 and phase 3's luminance cases only, and prints no result
+line.
+
     python3 chip_smoke.py --traced
 
 runs phases 1, 2 and 8b only (the differentiable path), and prints no
@@ -265,6 +274,7 @@ from fovvideovdp_tpu_torch.ops.cuda import _lib
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda import expand_contrast as ec
+from fovvideovdp_tpu_torch.ops.cuda import luminance as lum_op
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.cuda import temporal as tmp
@@ -323,13 +333,17 @@ SOURCES = {
     "mov_score": dict(
         source="fovvideovdp_tpu_torch/csrc/mov_score.cu",
         replaces="fovvideovdp_tpu/ops/pallas/mov_score.py:51", also_replaces=[]),
+    # no Pallas kernel: XLA fuses the JAX package's decode, EOTF and RGB -> Y
+    "luminance": dict(
+        source="fovvideovdp_tpu_torch/csrc/luminance.cu",
+        replaces="none (fovvideovdp_tpu/video_source.py:106, fused by XLA)", also_replaces=[]),
 }
 # the path whose run gives each kernel's "launches" in the kernels line
 # (band_score2 is on no path of the package: it is held in phase 3 only)
 PATH_OF = {"gausspyr_reduce": "video", "expand_score2": "video", "temporal_pair": "video",
            "expand_contrast": "foveated_video", "band_score2_fov": "foveated_video",
            "band_score": "per_channel_video", "band_score2": None,
-           "mov_score": "moving_gaze_video"}
+           "mov_score": "moving_gaze_video", "luminance": "video"}
 
 
 def synth_clip(h, w, n_frames):
@@ -736,6 +750,80 @@ def check_mov_score(levels, core_fov, sfu_rate, cases):
                 max_rel_err=rel, tolerance="relative 2e-4 on per-frame sums", ok=ok,
                 launches_per_call=1, ms=ms_k, plain_ms=plain_ms, library_ms=None,
                 bound_ms=b_ms, bound_by=b_by, main_path=main_path), f"level {bb} ({note})")
+
+
+LUM_FRAMES = 32                  # the 4K clip cells' block
+LUM_PAIRS = 3375                 # kadid-batch's chunk of 512 x 384 pairs
+
+
+def luminance_case(blk, dm, main_path, note, cases):
+    """One conversion of the (C, ...) view blk: the kernel against the plain
+    version (bit for bit, one launch), timed beside its byte bound (each
+    code read once, float32 written once) and the plain version."""
+    rgb2y = fvt.video_source.rgb_to_y("sRGB")
+    cuda_ops.reset_launch_counts()
+    got = lum_op.luminance(blk, dm, rgb2y)
+    launches = cuda_ops.launch_counts()["luminance"]
+    want = lum_op.luminance_plain(blk, dm, rgb2y)
+    torch.cuda.synchronize()
+    ok = bool(torch.equal(got, want)) and launches == 1
+    err = (got - want).abs().max().item()
+    plan = lum_op.launch_plan(blk, got)
+    del got, want
+    torch.cuda.empty_cache()
+    # a longer warm-up: the first case runs on a card just out of idle
+    ms_k = time_ms(lambda: lum_op.luminance(blk, dm, rgb2y), warmup=50)
+    plain_ms = time_ms(lambda: lum_op.luminance_plain(blk, dm, rgb2y), runs=3, warmup=1)
+    px = blk[0].numel()
+    b_ms, b_by = bound(px * (blk.shape[0] * blk.element_size() + 4), 2 * px, FP32_FLOP_PER_S)
+    add_row(cases, dict(
+        case="luminance", shape=list(blk.shape), dtype=str(blk.dtype).split(".")[-1],
+        arm="vector" if plan.vec else "scalar",
+        layout="interleaved" if plan.interleaved else
+        f"{plan.rows} row(s), pixel stride {plan.pixel_stride}",
+        blocks=plan.blocks, note=note, max_abs_err=err, tolerance="bit for bit", ok=ok,
+        launches_per_call=launches, ms=ms_k, plain_ms=plain_ms, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms_k, main_path=main_path),
+        f"{tuple(blk.shape)} ({note})")
+
+
+def check_luminance(dev, dm, cases):
+    """The luminance stage at the cells' shapes: a 32-frame 4K RGB block,
+    planar as the array source holds it, and kadid-batch's chunk of 3,375
+    interleaved 512 x 384 pairs, read in place; uniform random codes, the
+    tables' worst case.  Then the arms and types the cells leave out: a
+    view one byte off a 4-byte boundary and frames whose rows end off a
+    group of 4 (scalar arm), a grey block, 16-bit codes under PQ (their
+    tables through L2), planar and interleaved."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def codes(shape, dtype=torch.uint8):
+        hi = 256 if dtype == torch.uint8 else 65536
+        x = torch.randint(0, hi, shape, dtype=torch.int32, device=dev, generator=g)
+        return x.to(dtype)
+    clip = codes((3, LUM_FRAMES, H, W))
+    luminance_case(clip, dm, True, "4K RGB block, planar", cases)
+    chunk = codes((LUM_PAIRS, IMG_H, IMG_W, 3)).permute(3, 0, 1, 2)
+    luminance_case(chunk, dm, False, "kadid-batch chunk, interleaved", cases)
+    del chunk
+    buf = torch.empty(3 * 4 * H * W + 1, dtype=torch.uint8, device=dev)
+    off = buf[1:].view(3, 4, H, W)
+    off.copy_(clip[:, :4])
+    luminance_case(off, dm, False, "one byte off a 4-byte boundary", cases)
+    del buf, off
+    odd = clip[:, :4, :H - 1, :W - 1].transpose(0, 1).contiguous().transpose(0, 1)
+    luminance_case(odd, dm, False, "(n, C, H, W) frames, rows off a group of 4", cases)
+    del odd
+    luminance_case(clip[:1, :8], dm, False, "grey block", cases)
+    del clip
+    pq = fvt.fvvdp_display_photo_eotf(1000, contrast=1e5, EOTF="PQ")
+    luminance_case(codes((3, 8, H, W), torch.int16), pq, False, "16-bit planar, PQ", cases)
+    luminance_case(codes((256, IMG_H, IMG_W, 3), torch.int16).permute(3, 0, 1, 2), pq, False,
+                   "16-bit interleaved, PQ", cases)
+    emit(dict(phase="luminance_build", ptxas=[
+        line.strip() for line in _lib.build_log("luminance").splitlines()
+        if "luminance_kernel" in line or "Used" in line or "spill" in line]))
+    torch.cuda.empty_cache()
 
 
 def expect_launches(path, launches, must, must_not):
@@ -1396,7 +1484,7 @@ GRAD_VS_CPU_L2_TOL = 1e-3
 CKPT_TOL = 1e-6           # the same, with and without use_checkpoints
 TRACED_JOD_TOL = 1e-4     # predict_traced against predict
 ALL_KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
-               "band_score", "band_score2", "band_score2_fov", "mov_score")
+               "band_score", "band_score2", "band_score2_fov", "mov_score", "luminance")
 
 
 def lum_pair(h, w, frames=None, seed=0, noise=0.05):
@@ -1782,7 +1870,7 @@ def worst(got, want):
 def batch_images_phase(dev, smi, fv, test, ref):
     """64 512x384 RGB pairs through predict_batch against a loop of predict."""
     n_levels = fv._get_core(IMG_W, IMG_H, with_heatmap=False).plan.height
-    must = ("gausspyr_reduce", "expand_score2")
+    must = ("gausspyr_reduce", "expand_score2", "luminance")
     (jods, _), launches = counted(lambda: fv.predict_batch(test, ref, dim_order="BHWC"))
     expect_launches("batch_images", launches, must, not_launched(must))
     chunk = fv._pick_chunk(IMG_H, IMG_W, IMG_N, 1, "fused",
@@ -1827,7 +1915,7 @@ def batch_clips_phase(dev, smi):
     call = dict(dim_order="BHWCF", frames_per_second=FPS)
     fv = fvt.fvvdp(display_name="standard_fhd")
     n_levels = fv._get_core(HD_W, HD_H).plan.height
-    must = ("gausspyr_reduce", "expand_score2", "temporal_pair")
+    must = ("gausspyr_reduce", "expand_score2", "temporal_pair", "luminance")
     (jods, stats), launches = counted(lambda: fv.predict_batch(test, ref, **call))
     expect_launches("batch_clips", launches, must, not_launched(must))
     fl = temporal_ops.filter_len_for_fps(FPS)
@@ -1880,10 +1968,10 @@ def batch_foveated_phase(dev, smi, test, ref):
     per_pair = (rng.random((IMG_N, 2)) * [IMG_W - 1, IMG_H - 1]).astype(np.float32)
     out, all_launches, checked = {}, {}, {}
     for mode, gaze, must, none in (
-            ("shared_gaze", shared, ("gausspyr_reduce", "expand_contrast", "band_score2_fov"),
-             ("mov_score",)),
-            ("gaze_per_pair", per_pair, ("gausspyr_reduce", "expand_contrast", "mov_score"),
-             ("band_score2_fov",))):
+            ("shared_gaze", shared, ("gausspyr_reduce", "expand_contrast", "band_score2_fov",
+                                     "luminance"), ("mov_score",)),
+            ("gaze_per_pair", per_pair, ("gausspyr_reduce", "expand_contrast", "mov_score",
+                                         "luminance"), ("band_score2_fov",))):
         (jods, _), launches = counted(lambda: fv.predict_batch(
             test, ref, dim_order="BHWC", fixation_point=gaze))
         expect_launches(f"batch_foveated {mode}", launches, must, not_launched(must))
@@ -1915,7 +2003,7 @@ def ablation_video_phase(dev, smi, test_v, ref_v):
     images, no temporal kernel; a 1080p 8-frame clip, for the CPU check."""
     video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
     fv = fvt.fvvdp(display_name="standard_4k", do_temporal_channels=False)
-    must = ("gausspyr_reduce", "expand_score2")
+    must = ("gausspyr_reduce", "expand_score2", "luminance")
     (q, stats), launches = counted(lambda: fv.predict(test_v, ref_v, **video_kw))
     expect_launches("ablation_video", launches, must, not_launched(must))
     q_pc = stats["Q_per_ch"]
@@ -1989,18 +2077,20 @@ def host_resident_batch_phase(dev, smi, images, clip, hd_clip, test_v, ref_v, q_
         # (case, call, CPU JOD(s), kernels that must launch, kernels that must not)
         ("images_chunks_of_3", lambda: fhd(block_frames=3).predict_batch(
             img_t, img_r, dim_order="BHWC")[0], img_cpu,
-         ("gausspyr_reduce", "expand_score2"), ("temporal_pair",)),
+         ("gausspyr_reduce", "expand_score2", "luminance"), ("temporal_pair",)),
         ("clip_whole", lambda: fhd().predict_batch(clip_t, clip_r, **clip_kw)[0], [clip_cpu],
-         ("gausspyr_reduce", "expand_score2", "temporal_pair"), ("expand_contrast",)),
+         ("gausspyr_reduce", "expand_score2", "temporal_pair", "luminance"),
+         ("expand_contrast",)),
         ("clip_streamed", lambda: fhd(block_frames=8).predict_batch(
             clip_t, clip_r, **clip_kw)[0], [clip_cpu],
-         ("gausspyr_reduce", "expand_score2", "temporal_pair"), ("expand_contrast",)),
+         ("gausspyr_reduce", "expand_score2", "temporal_pair", "luminance"),
+         ("expand_contrast",)),
         ("ablation_1080p", lambda: [fhd(do_temporal_channels=False).predict(
             hd_t, hd_r, **video_kw)[0]], [hd_cpu],
-         ("gausspyr_reduce", "expand_score2"), ("temporal_pair",)),
+         ("gausspyr_reduce", "expand_score2", "luminance"), ("temporal_pair",)),
         ("ablation_1080p_chunks_of_3", lambda: [fhd(do_temporal_channels=False, block_frames=3)
                                                 .predict(hd_t, hd_r, **video_kw)[0]], [hd_cpu],
-         ("gausspyr_reduce", "expand_score2"), ("temporal_pair",)),
+         ("gausspyr_reduce", "expand_score2", "luminance"), ("temporal_pair",)),
     )
     out, all_launches = {}, {}
     fvt.fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES = 0
@@ -2028,7 +2118,7 @@ def host_resident_batch_phase(dev, smi, images, clip, hd_clip, test_v, ref_v, q_
         peak = torch.cuda.max_memory_allocated()
         q_pc = stats["Q_per_ch"]
         expect_launches("host_resident_batch ablation_4k", launches,
-                        ("gausspyr_reduce", "expand_score2"), ("temporal_pair",))
+                        ("gausspyr_reduce", "expand_score2", "luminance"), ("temporal_pair",))
         n_levels = fv4k._get_core(W, H).plan.height
         chunks = launches["expand_score2"] // n_levels
         if not abs(q_host - q_4k) <= BATCH_TOL or not np.all(q_pc[:, 1] == 0.0) \
@@ -2079,7 +2169,7 @@ def batch_phases(dev, smi, test_v, ref_v):
 OPT_H, OPT_W = 540, 960   # the card-against-CPU size of phase 8d (the CPU's
                           # composition of a 1080p clip takes ~4x as long)
 OPT_TOL, OPT_TOL_FOV = 1e-4, 1e-3
-KERNEL_ROUTE = ("gausspyr_reduce", "temporal_pair")
+KERNEL_ROUTE = ("gausspyr_reduce", "temporal_pair", "luminance")
 
 
 def equirect(w, h):
@@ -2325,10 +2415,11 @@ class BlockLog(fvt.fvvdp_video_source_array):
 
 def check_resume_launches(counts, n_blocks, n_levels):
     """The resumed run scores its remaining blocks on the default route and
-    nothing else."""
+    nothing else, converting at least each block's test and reference."""
     want = dict(gausspyr_reduce=n_levels * n_blocks, temporal_pair=n_blocks,
                 expand_score2=n_levels * n_blocks)
-    if any(v != want.get(k, 0) for k, v in counts.items()):
+    if any(v != want.get(k, 0) for k, v in counts.items() if k != "luminance") \
+            or counts["luminance"] < 2 * n_blocks:
         raise AssertionError(f"resumed run: launches {counts}, expected {want}")
 
 
@@ -2432,8 +2523,9 @@ def checkpoint_phase(dev, smi, test_v, ref_v):
 
 
 def pu_psnr_phase(dev, smi, test_v, ref_v):
-    """PU21-PSNR of the 4K clip on the card (no kernel launches) against
-    device="cpu" (|dB| <= 1e-3); warm seconds and fps."""
+    """PU21-PSNR of the 4K clip on the card (no kernel launches but the
+    luminance stage's) against device="cpu" (|dB| <= 1e-3); warm seconds
+    and fps."""
     kw = dict(dim_order="HWCF", frames_per_second=FPS)
     pp = fvt.pu_psnr()
     (q, stats), counts = counted(lambda: pp.predict(test_v, ref_v, **kw))
@@ -2444,8 +2536,8 @@ def pu_psnr_phase(dev, smi, test_v, ref_v):
     emit(dict(phase="pu_psnr_video", nvidia_smi=smi, db=q, db_cpu=q_cpu, abs_err=abs(q - q_cpu),
               tolerance="|d dB| <= 1e-3", warm_s_runs=times, warm_s_median=warm_s,
               fps=N_FRAMES / warm_s, cpu_s=cpu_s, launches=counts))
-    if any(counts.values()) or stats is not None or not np.isfinite(q) \
-            or not abs(q - q_cpu) <= 1e-3:
+    if any(v for k, v in counts.items() if k != "luminance") or not counts["luminance"] > 0 \
+            or stats is not None or not np.isfinite(q) or not abs(q - q_cpu) <= 1e-3:
         raise AssertionError(f"pu_psnr: card {q} dB vs CPU {q_cpu}, launches {counts}")
     return counts
 
@@ -2524,7 +2616,8 @@ def update_device_phase(dev, smi):
     on_card = all(v.is_cuda for lut in fv._luts for v in lut.values() if torch.is_tensor(v))
     emit(dict(phase="update_device", nvidia_smi=smi, shape=[EXTRA_H, EXTRA_W, 8], jod_cpu=q_cpu,
               jod_moved=q_moved, jod_card=q_card, luts_on_card=on_card, launches=counts))
-    expect_launches("update_device", counts, MAIN_KERNELS, not_launched(MAIN_KERNELS))
+    must = MAIN_KERNELS + ("luminance",)
+    expect_launches("update_device", counts, must, not_launched(must))
     if not abs(q_moved - q_card) <= 1e-6 or not on_card or not abs(q_cpu - q_card) <= 1e-4:
         raise AssertionError(f"update_device: moved {q_moved}, card {q_card}, CPU {q_cpu}")
     return counts
@@ -2673,7 +2766,7 @@ def mesh_video_phase(smi, test_v, ref_v, mesh):
         test_v, ref_v, dim_order="HWCF", frames_per_second=FPS, mesh=mesh), mesh.size)
     subs = sub_blocks(B, N_FRAMES, mesh.size)
     check_slot_launches("mesh_video", per_slot, subs, n_levels,
-                        ("gausspyr_reduce", "expand_score2"))
+                        ("gausspyr_reduce", "expand_score2"), ("luminance",))
     err_q, err_pc = rel_err_max(q, q_one), rel_err_max(s["Q_per_ch"], s_one["Q_per_ch"])
     if not err_q <= MESH_TOL or not err_pc <= MESH_TOL or not abs(q - GOLDEN_SYNTH_Q) <= JOD_TOL:
         raise AssertionError(f"mesh_video: JOD {q} vs one card {q_one} ({err_q}), Q_per_ch "
@@ -2749,7 +2842,8 @@ def mesh_clip_cases(smi, test_v, ref_v, mesh):
         wall = time.perf_counter() - t0
         subs = sub_blocks(B, MESH_FRAMES, mesh.size)
         check_slot_launches(case, per_slot, subs, n_levels, per_level,
-                            () if per_level else ("gausspyr_reduce", "expand_contrast"))
+                            ("luminance",) if per_level else
+                            ("gausspyr_reduce", "expand_contrast", "luminance"))
         err_q, err_pc = rel_err_max(q, q_one), rel_err_max(s["Q_per_ch"], s_one["Q_per_ch"])
         heat_err = None
         if "heatmap" in s_one:
@@ -2786,8 +2880,8 @@ def mesh_batch_cases(smi, mesh):
         j_one, s_one = fv.predict_batch(t, r, **call)
         (j, s), totals, per_slot = counted_slots(
             lambda: fv.predict_batch(t, r, mesh=mesh, **call), mesh.size)
-        must = ("gausspyr_reduce", "expand_score2") + (("temporal_pair",) if "F" in
-                                                        call["dim_order"] else ())
+        must = ("gausspyr_reduce", "expand_score2", "luminance") + (
+            ("temporal_pair",) if "F" in call["dim_order"] else ())
         for k, counts in enumerate(per_slot):
             expect_launches(f"{case} slot {k}", counts, must, not_launched(must))
         err = rel_err_max(j, j_one)
@@ -2839,7 +2933,7 @@ def mesh_checkpoint_case(smi, test_v, ref_v, mesh, q_one):
         left = os.path.exists(ckpt)
     subs = sub_blocks(32, N_FRAMES, mesh.size, start=32)
     check_slot_launches("mesh_checkpoint", per_slot, subs, n_levels,
-                        ("gausspyr_reduce", "expand_score2"))
+                        ("gausspyr_reduce", "expand_score2"), ("luminance",))
     first = min(resumed.frames)
     bit = q == q_clean and np.array_equal(s["Q_per_ch"], s_clean["Q_per_ch"])
     emit(dict(phase="mesh_checkpoint_resume", nvidia_smi=smi, jod=q, jod_clean_mesh=q_clean,
@@ -3330,6 +3424,7 @@ def main():
     extras_only = "--extras" in sys.argv
     mesh_only = "--mesh" in sys.argv
     space_only = "--space" in sys.argv
+    luminance_only = "--luminance" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -3352,6 +3447,10 @@ def main():
         _lib.kernel_fn(k)
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=_lib.build_seconds))
+    if luminance_only:
+        check_luminance(dev, fvt.fvvdp(display_name="standard_4k").display_photometry,
+                        dict(rows=[]))
+        return 0
     if traced_only:
         traced_phases(dev, smi)
         return 0
@@ -3381,6 +3480,7 @@ def main():
     emit(dict(phase="luminance_block", frames=B,
               ms=time_ms(lambda: vs.get_luminance_block(0, B))))
     cases = dict(rows=[], n_levels=core.plan.height)
+    check_luminance(dev, fv.display_photometry, cases)
     check_temporal(ct, nt, cr, nr, taps, True, cases)
     empty = torch.empty((0, H, W), dtype=torch.float32, device=dev)
     check_temporal(empty, torch.cat([ct, nt]), empty, torch.cat([cr, nr]), taps,
@@ -3421,7 +3521,7 @@ def main():
     q_video, stats = fv.predict(test_v, ref_v, dim_order="HWCF", frames_per_second=FPS)
     first_s = time.perf_counter() - t0
     launches = path_launches["video"] = cuda_ops.launch_counts()
-    video_must = ("gausspyr_reduce", "expand_score2", "temporal_pair")
+    video_must = ("gausspyr_reduce", "expand_score2", "temporal_pair", "luminance")
     video_not = ("expand_contrast", "band_score", "band_score2", "band_score2_fov",
                  "mov_score")
     expect_launches("video", launches, video_must, video_not)
@@ -3498,7 +3598,8 @@ def main():
     img_launches = cuda_ops.launch_counts()
     if not np.isfinite(q_img) or not np.all(np.isfinite(s_img["Q_per_ch"])):
         raise AssertionError(f"4K image JOD {q_img} not finite")
-    expect_launches("image", img_launches, must=("gausspyr_reduce", "expand_score2"),
+    expect_launches("image", img_launches,
+                    must=("gausspyr_reduce", "expand_score2", "luminance"),
                     must_not=("temporal_pair", "expand_contrast", "band_score",
                               "band_score2", "band_score2_fov", "mov_score"))
     img_times = []
@@ -3514,7 +3615,7 @@ def main():
     # 6. fixed-gaze foveation: the 4K clip, its first frame, and a VR-sized
     # video against the CPU
     img_t, img_r = test_v[..., 0], ref_v[..., 0]
-    fov_must = ("gausspyr_reduce", "expand_contrast", "band_score2_fov")
+    fov_must = ("gausspyr_reduce", "expand_contrast", "band_score2_fov", "luminance")
     fov_not = ("expand_score2", "band_score", "band_score2", "mov_score")
     (q_fov, s_fov), launches = counted(lambda: fv_fov.predict(test_v, ref_v, **video_kw))
     path_launches["foveated_video"] = launches
@@ -3547,7 +3648,7 @@ def main():
     # 6b. moving-gaze foveation.  A metric of its own: a gaze per frame frees
     # its core's fixed-gaze tables, and fv_fov's stay for the comparison.
     n_levels = core.plan.height
-    mov_must = ("gausspyr_reduce", "expand_contrast", "mov_score")
+    mov_must = ("gausspyr_reduce", "expand_contrast", "mov_score", "luminance")
     mov_not = ("expand_score2", "band_score", "band_score2", "band_score2_fov")
     fv_mov = fvt.fvvdp(display_name="standard_4k", foveated=True)
     gaze = sweeping_gaze(W, H, N_FRAMES)
@@ -3597,7 +3698,8 @@ def main():
         (jods[route], _), launches = counted(
             lambda: fv_r.predict(test_v, ref_v, **kw_r, **video_kw))
         expect_launches(f"centre gaze, {route} route", launches,
-                        ("band_score2_fov",) if route == "fixed" else ("mov_score",),
+                        ("band_score2_fov", "luminance") if route == "fixed"
+                        else ("mov_score", "luminance"),
                         ("mov_score",) if route == "fixed" else ("band_score2_fov",))
         warm[route].append(warm_seconds(
             lambda: fv_r.predict(test_v, ref_v, **kw_r, **video_kw))[1])
@@ -3695,7 +3797,7 @@ def main():
     del vr_t, vr_r
 
     # 7. heatmaps
-    heat_must = ("gausspyr_reduce", "expand_contrast")
+    heat_must = ("gausspyr_reduce", "expand_contrast", "luminance")
     heat_not = ("expand_score2", "band_score", "band_score2", "band_score2_fov", "mov_score")
     heat = {}
     for kind in ("threshold", "raw"):
@@ -3764,7 +3866,7 @@ def main():
               peak_bytes_per_px_frame=peak / (B_h * H * W), launches=launches))
 
     # 8. per-channel LUTs (the temporal channels' Y grids differ)
-    pc_must = ("gausspyr_reduce", "expand_contrast", "band_score")
+    pc_must = ("gausspyr_reduce", "expand_contrast", "band_score", "luminance")
     pc_not = ("expand_score2", "band_score2", "band_score2_fov", "mov_score")
     (q_pci, _), launches = counted(lambda: fv_pc.predict(img_t, img_r, dim_order="HWC"))
     expect_launches("per-channel image", launches, pc_must, pc_not + ("temporal_pair",))

@@ -2,7 +2,9 @@
 versions.
 
 Each wrapper dispatches on the device of its input: a CPU tensor goes to
-the plain version, a CUDA tensor launches the kernel or raises.  Kernels
+the plain version, a CUDA tensor launches the kernel or raises.  The
+luminance stage also keeps float frames, which no table can hold, on its
+plain version.  Kernels
 are built from ``csrc/`` at first use (see ``_lib``); importing this
 package builds nothing.
 """

@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
-           "band_score", "band_score2", "band_score2_fov", "mov_score")
+           "band_score", "band_score2", "band_score2_fov", "mov_score", "luminance")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # y0, 1/dy, Ymin, Ymax, p, then the masking exponents and log2 scalars up to beta
@@ -82,6 +82,10 @@ _SIGNATURES = {
     "mov_score": ("mov_score", "fvvdp_mov_score",
                   [_P] * 9 + [_I, _I, _L, _I, _I, _I] + [_I] * 5 + [_F] * 5
                   + [*_SCORE2, _P]),
+    # x, tables, out, n, rows, row_len, row_stride, pixel_stride,
+    # channel_stride, channels, element bytes, interleaved, vec, blocks (the
+    # wrapper's launch plan), stream
+    "luminance": ("luminance", "fvvdp_luminance", [_P, _P, _P] + [_L] * 6 + [_I] * 5 + [_P]),
 }
 
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}

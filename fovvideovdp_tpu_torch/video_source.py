@@ -25,6 +25,8 @@ import torch
 
 from fovvideovdp_tpu_torch import utils
 from fovvideovdp_tpu_torch.display_model import fvvdp_display_photometry
+from fovvideovdp_tpu_torch.ops.cuda import luminance as lum_op
+from fovvideovdp_tpu_torch.ops.cuda.luminance import channels_to_luminance
 from fovvideovdp_tpu_torch.tracing import free_device_bytes, span
 
 
@@ -67,38 +69,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _decode_raw(x: torch.Tensor) -> torch.Tensor:
-    """Raw stored pixel values -> display-encoded float32 in [0, 1]."""
-    if x.dtype == torch.uint8:
-        return x.to(torch.float32) / 255.0
-    if x.dtype == torch.int16:
-        # 16-bit input travels as int16 (uint16 reinterpreted bit for bit)
-        return (x.to(torch.int32) & 0xFFFF).to(torch.float32) / 65535.0
-    return x.to(torch.float32)
-
-
-def channels_to_luminance(channel: Callable[[int], torch.Tensor], dm, rgb2y) -> torch.Tensor:
-    """Absolute luminance from the display-encoded colour channels that
-    ``channel(c)`` gives, c = 0, 1, 2: one channel's float32 intermediate
-    live at a time."""
-    L = dm.forward(channel(0)) * rgb2y[0]
-    L = L + dm.forward(channel(1)) * rgb2y[1]
-    return L + dm.forward(channel(2)) * rgb2y[2]
-
-
 def rgb_to_y(color_space_name: str) -> Tuple[float, float, float]:
     """The colour space's RGB -> Y weights (``color_spaces.json``)."""
     colorspaces = utils.json2dict(utils.config_files.find("color_spaces.json"))
     if color_space_name not in colorspaces:
         raise RuntimeError(f'Unknown color space: "{color_space_name}"')
     return tuple(float(c) for c in colorspaces[color_space_name]["RGB2Y"])
-
-
-def _luminance_cfirst(blk: torch.Tensor, dm, rgb2y) -> torch.Tensor:
-    """(C, n, ...) raw frames -> (n, ...) absolute luminance."""
-    if blk.shape[0] == 3:
-        return channels_to_luminance(lambda c: _decode_raw(blk[c]), dm, rgb2y)
-    return dm.forward(_decode_raw(blk[0]))
 
 
 # pixels of one conversion chunk of a file source: the decode's float32
@@ -215,8 +191,8 @@ class fvvdp_video_source_dm(fvvdp_video_source):
         frames = torch.as_tensor(frames)
         if frames.dtype == torch.uint16:
             frames = frames.view(torch.int16)     # 16-bit values travel as int16
-        return _luminance_cfirst(frames.transpose(0, 1), self.dm_photometry,
-                                 self.color_to_luminance)
+        return lum_op.luminance(frames.transpose(0, 1), self.dm_photometry,
+                                self.color_to_luminance)
 
 
 # types that go to the device as they are stored (uint16 travels as int16);
@@ -432,7 +408,7 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
         return self._size
 
     def _lum(self, blk: torch.Tensor) -> torch.Tensor:
-        return _luminance_cfirst(blk, self.dm_photometry, self.color_to_luminance)
+        return lum_op.luminance(blk, self.dm_photometry, self.color_to_luminance)
 
     def _pair_bytes(self, n: int) -> int:
         C, _, H, W = self._t.shape
@@ -656,6 +632,6 @@ class PairBatch:
         ``frames`` (a slice, or an index array for the temporal padding)."""
         with span("fvvdp.luminance"):
             return tuple(
-                self._encode(_luminance_cfirst(self._raw(x, start, count, frames).transpose(0, 1),
-                                               self._dm, self._rgb2y))
+                self._encode(lum_op.luminance(
+                    self._raw(x, start, count, frames).transpose(0, 1), self._dm, self._rgb2y))
                 for x in (self._t, self._r))
