@@ -15,7 +15,8 @@ CSF LUT comes from the packaged ``.npz`` files, a user ``.mat`` cache or the
 analytic generator, in that order.  Files are read by
 ``fvvdp_video_source_file`` (images, raw ``.yuv``, videos through ffmpeg or
 OpenCV) and scored from the command line by ``fvvdp-torch``
-(``python -m fovvideovdp_tpu_torch.run_fvvdp``).  A streamed video can be
+(``python -m fovvideovdp_tpu_torch.run_fvvdp``); raw Y'CbCr frames already
+in memory go through ``fvvdp_video_source_yuv_array``.  A streamed video can be
 checkpointed and resumed (``predict_video_source(checkpoint_path=...)``).
 ``parallel`` scores over several cards (``predict(mesh=make_mesh())``,
 ``predict_batch(mesh=...)``, ``fvvdp-torch --all-devices``) and several
@@ -41,7 +42,10 @@ from fovvideovdp_tpu_torch.video_source import (
     fvvdp_video_source_packed_array,
 )
 from fovvideovdp_tpu_torch.video_source_file import fvvdp_video_source_file
-from fovvideovdp_tpu_torch.video_source_yuv import fvvdp_video_source_yuv_file
+from fovvideovdp_tpu_torch.video_source_yuv import (
+    fvvdp_video_source_yuv_array,
+    fvvdp_video_source_yuv_file,
+)
 from fovvideovdp_tpu_torch.visualize import vis_tonemap, visualize_diff_map
 
 __version__ = "0.1.0"
@@ -61,6 +65,7 @@ __all__ = [
     "fvvdp_video_source_packed_array",
     "fvvdp_video_source_file",
     "fvvdp_video_source_yuv_file",
+    "fvvdp_video_source_yuv_array",
     "load_image_as_array",
     "visualize_diff_map",
     "vis_tonemap",

@@ -18,6 +18,8 @@ kernel wrapper (the device trace names the kernels):
   of independent frames, images or clips;
 * ``fvvdp.luminance``: raw frames to the luminance the core scores (a file
   source's reader included);
+* ``fvvdp.yuv``: each conversion of a block of raw Y'CbCr frames
+  (``video_source_yuv.yuv_block_to_luminance``), inside ``fvvdp.luminance``;
 * ``fvvdp.mem_query``: each query of the card's free memory
   (:func:`free_device_bytes`);
 * ``fvvdp.pool``: the pooling to JOD;

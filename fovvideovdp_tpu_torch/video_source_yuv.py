@@ -9,18 +9,23 @@ while this block is scored; chroma upsampling, YCbCr -> RGB, the optional
 full-screen resize, the EOTF and RGB -> Y then run on the device, one
 channel and a chunk of frames at a time.  ``reader="python"`` reads through
 ``np.memmap`` instead of the native reader; nothing falls back to it.
+``fvvdp_video_source_yuv_array`` takes the same raw frames already in
+memory (on the card, as a decoder leaves them) and converts them the same
+way.
 """
 from __future__ import annotations
 
 import logging
 import os
 import re
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch.io import RESIZE_METHODS, resize as resize_planes
 from fovvideovdp_tpu_torch.io import yuv as yuv_io
+from fovvideovdp_tpu_torch.tracing import span
 from fovvideovdp_tpu_torch.video_source import (_HostBlocks, channels_to_luminance,
                                                 convert_frames, fvvdp_video_source_dm,
                                                 host_tensor, is_run, resolve_device)
@@ -87,24 +92,26 @@ def yuv_block_to_luminance(raw: torch.Tensor, w: int, h: int, bd: int, ss: str,
     luminance on raw's device: per chunk of frames, the planes decoded and
     upsampled once, then each colour channel converted, clipped, resized,
     clipped and taken through the EOTF in turn.  ``clip_before_resize`` is
-    the .yuv source's order; the ffmpeg pipe clips after the resize only."""
-    Y, u, v = split_planes(raw, w, h, ss)
-    M = yuv_io.conversion_matrix(bt2020)
-    resized = resize is not None and (h != rh or w != rw)
-    out_hw = (rh, rw) if resized else (h, w)
+    the .yuv source's order; the ffmpeg pipe clips after the resize only.
+    Each call is one ``fvvdp.yuv`` span."""
+    with span("fvvdp.yuv"):
+        Y, u, v = split_planes(raw, w, h, ss)
+        M = yuv_io.conversion_matrix(bt2020)
+        resized = resize is not None and (h != rh or w != rw)
+        out_hw = (rh, rw) if resized else (h, w)
 
-    def chunk(i, j):
-        planes = yuv_io.decoded_planes(Y[i:j], u[i:j], v[i:j], bd, ss)
+        def chunk(i, j):
+            planes = yuv_io.decoded_planes(Y[i:j], u[i:j], v[i:j], bd, ss)
 
-        def channel(c):
-            x = yuv_io.rgb_channel(planes, M, c)
-            if clip_before_resize or not resized:
-                x = torch.clamp(x, 0.0, 1.0)
-            if resized:
-                x = torch.clamp(resize_planes(x, out_hw, RESIZE_METHODS[resize]), 0.0, 1.0)
-            return x
-        return channels_to_luminance(channel, dm, rgb2y)
-    return convert_frames(raw.shape[0], out_hw, max(h * w, rh * rw), raw.device, chunk)
+            def channel(c):
+                x = yuv_io.rgb_channel(planes, M, c)
+                if clip_before_resize or not resized:
+                    x = torch.clamp(x, 0.0, 1.0)
+                if resized:
+                    x = torch.clamp(resize_planes(x, out_hw, RESIZE_METHODS[resize]), 0.0, 1.0)
+                return x
+            return channels_to_luminance(channel, dm, rgb2y)
+        return convert_frames(raw.shape[0], out_hw, max(h * w, rh * rw), raw.device, chunk)
 
 
 class YUVReader:
@@ -214,7 +221,63 @@ class YUVReader:
         self.close()
 
 
-class fvvdp_video_source_yuv_file(fvvdp_video_source_dm):
+class _yuv_pair_source(fvvdp_video_source_dm):
+    """What the .yuv sources share: a raw (n, frame_samples) block of each
+    side, wherever it comes from (``_raw_pair``, ``_raw_frame``), decoded
+    by ``yuv_block_to_luminance`` under that side's format (an object with
+    ``width``, ``height``, ``bit_depth``, ``chroma_ss`` and
+    ``color_space``, ``self._formats``)."""
+
+    full_screen_resize = None
+    resize_resolution = None
+
+    def _block_args(self, fmt):
+        resize = self.full_screen_resize
+        rh = self.resize_resolution[1] if resize is not None else fmt.height
+        rw = self.resize_resolution[0] if resize is not None else fmt.width
+        return dict(w=fmt.width, h=fmt.height, bd=fmt.bit_depth, ss=fmt.chroma_ss,
+                    bt2020=(fmt.color_space == "2020"), resize=resize,
+                    rh=rh, rw=rw, dm=self.dm_photometry, rgb2y=self.color_to_luminance)
+
+    def _luminance_pair(self, idx: np.ndarray):
+        raws = self._raw_pair(idx)
+        return tuple(yuv_block_to_luminance(raw, **self._block_args(fmt))
+                     for raw, fmt in zip(raws, self._formats))
+
+    def get_luminance_block(self, start, count):
+        out = self._luminance_pair(np.arange(start, start + count))
+        nxt = start + count
+        if self._blocks is not None and nxt < self.frames:
+            self._blocks.prefetch(nxt, min(count, self.frames - nxt))
+        return out
+
+    def get_indexed_luminance_block(self, indices):
+        idx = np.asarray(indices, dtype=np.int64)
+        if len(idx) == 0:
+            h, w, _ = self.get_video_size()
+            empty = torch.zeros((0, h, w), dtype=torch.float32, device=self.device)
+            return empty, empty
+        # each distinct frame is read and converted once: the replicate
+        # warm-up asks for fl-1 copies of frame 0
+        frames, where = np.unique(idx, return_inverse=True)
+        pair = self._luminance_pair(frames)
+        if len(frames) == len(idx) and np.array_equal(frames, idx):
+            return pair
+        where = torch.as_tensor(where, device=self.device)
+        return tuple(x.index_select(0, where) for x in pair)
+
+    def _frame_lum(self, side: int, frame: int) -> torch.Tensor:
+        raw = self._raw_frame(side, frame)
+        return yuv_block_to_luminance(raw, **self._block_args(self._formats[side]))[None, None]
+
+    def get_test_frame(self, frame, device=None):
+        return self._frame_lum(0, frame)
+
+    def get_reference_frame(self, frame, device=None):
+        return self._frame_lum(1, frame)
+
+
+class fvvdp_video_source_yuv_file(_yuv_pair_source):
     """Test/reference pair of raw .yuv files, converted on ``device``."""
 
     def __init__(self, test_fname, reference_fname, display_photometry="standard_4k",
@@ -222,6 +285,7 @@ class fvvdp_video_source_yuv_file(fvvdp_video_source_dm):
                  resize_resolution=None, verbose=False, device="cuda", reader="native"):
         self.reference_vidr = YUVReader(reference_fname, reader)
         self.test_vidr = YUVReader(test_fname, reader)
+        self._formats = (self.test_vidr, self.reference_vidr)
         self.frames = self.test_vidr.frame_count if frames == -1 \
             else min(self.test_vidr.frame_count, frames)
         self.full_screen_resize = full_screen_resize
@@ -278,47 +342,88 @@ class fvvdp_video_source_yuv_file(fvvdp_video_source_dm):
             flat = flat.to(self.device)
         return self._split(flat, len(idx))
 
-    def _block_args(self, vr):
-        resize = self.full_screen_resize
-        rh = self.resize_resolution[1] if resize is not None else vr.height
-        rw = self.resize_resolution[0] if resize is not None else vr.width
-        return dict(w=vr.width, h=vr.height, bd=vr.bit_depth, ss=vr.chroma_ss,
-                    bt2020=(vr.color_space == "2020"), resize=resize,
-                    rh=rh, rw=rw, dm=self.dm_photometry, rgb2y=self.color_to_luminance)
+    def _raw_frame(self, side: int, frame: int) -> torch.Tensor:
+        return host_tensor(self._formats[side].read_raw_block(frame, 1)).to(self.device)
 
-    def _luminance_pair(self, idx: np.ndarray):
-        t_raw, r_raw = self._raw_pair(idx)
-        return (yuv_block_to_luminance(t_raw, **self._block_args(self.test_vidr)),
-                yuv_block_to_luminance(r_raw, **self._block_args(self.reference_vidr)))
 
-    def get_luminance_block(self, start, count):
-        out = self._luminance_pair(np.arange(start, start + count))
-        nxt = start + count
-        if self._blocks is not None and nxt < self.frames:
-            self._blocks.prefetch(nxt, min(count, self.frames - nxt))
-        return out
+class YUVFormat(NamedTuple):
+    """The layout of raw Y'CbCr frames: planar Y, then Cb, then Cr, each
+    sample in one byte (8 bits) or one 16-bit word (10 and 12 bits),
+    narrow range; ``chroma_ss`` "420" or "444", ``color_space`` "2020" or
+    "709" (the Y'CbCr -> R'G'B' matrix)."""
+    width: int
+    height: int
+    bit_depth: int
+    chroma_ss: str
+    color_space: str
 
-    def get_indexed_luminance_block(self, indices):
-        idx = np.asarray(indices, dtype=np.int64)
-        if len(idx) == 0:
-            h, w, _ = self.get_video_size()
-            empty = torch.zeros((0, h, w), dtype=torch.float32, device=self.device)
-            return empty, empty
-        # each distinct frame is read and converted once: the replicate
-        # warm-up asks for fl-1 copies of frame 0
-        frames, where = np.unique(idx, return_inverse=True)
-        pair = self._luminance_pair(frames)
-        if len(frames) == len(idx) and np.array_equal(frames, idx):
-            return pair
-        where = torch.as_tensor(where, device=self.device)
-        return tuple(x.index_select(0, where) for x in pair)
+    @property
+    def frame_samples(self) -> int:
+        y = self.width * self.height
+        return y * 3 // 2 if self.chroma_ss == "420" else y * 3
 
-    def _frame_lum(self, vr, frame: int) -> torch.Tensor:
-        raw = host_tensor(vr.read_raw_block(frame, 1)).to(self.device)
-        return yuv_block_to_luminance(raw, **self._block_args(vr))[None, None]
+    @property
+    def sample_dtype(self) -> torch.dtype:
+        return torch.int16 if self.bit_depth > 8 else torch.uint8
 
-    def get_test_frame(self, frame, device=None):
-        return self._frame_lum(self.test_vidr, frame)
 
-    def get_reference_frame(self, frame, device=None):
-        return self._frame_lum(self.reference_vidr, frame)
+def _stored_yuv(x, fmt: YUVFormat, device: torch.device) -> torch.Tensor:
+    """Raw frames (a tensor or an array) -> the (F, frame_samples) tensor of
+    their stored samples on ``device`` (uint16 as int16)."""
+    t = x if isinstance(x, torch.Tensor) else host_tensor(np.asarray(x))
+    if t.dtype == getattr(torch, "uint16", None):
+        t = t.view(torch.int16)
+    if t.dtype != fmt.sample_dtype:
+        raise RuntimeError(f"{fmt.bit_depth}-bit samples are stored as {fmt.sample_dtype} "
+                           f"(uint16 as int16), got {t.dtype}")
+    if t.dim() != 2 or t.shape[1] != fmt.frame_samples:
+        raise RuntimeError(f"raw frames must be (F, {fmt.frame_samples}) for {fmt.width}x"
+                           f"{fmt.height} {fmt.chroma_ss}, got {tuple(t.shape)}")
+    return t.to(device)
+
+
+class fvvdp_video_source_yuv_array(_yuv_pair_source):
+    """Test/reference pair of raw Y'CbCr frames held in memory, as a
+    decoder writes them: each clip an (F, frame_samples) tensor of stored
+    samples in the .yuv layout (``YUVFormat``), 16-bit words as int16 (or
+    uint16) and 8-bit samples as uint8.  Clips on the card stay there and
+    each block is a slice of them; others are copied to ``device`` once.
+    The conversion is the .yuv file source's."""
+
+    def __init__(self, test, reference, fps, width, height, bit_depth=10, chroma_ss="420",
+                 color_space="2020", display_photometry="standard_4k",
+                 color_space_name="auto", device="cuda"):
+        if chroma_ss not in ("420", "444"):
+            raise ValueError(f'chroma_ss must be "420" or "444", got {chroma_ss!r}')
+        if color_space not in ("2020", "709"):
+            raise ValueError(f'color_space must be "2020" or "709", got {color_space!r}')
+        fmt = YUVFormat(int(width), int(height), int(bit_depth), chroma_ss, color_space)
+        self._formats = (fmt, fmt)
+        self.device = resolve_device(device)
+        self._t = _stored_yuv(test, fmt, self.device)
+        self._r = _stored_yuv(reference, fmt, self.device)
+        if self._t.shape != self._r.shape:
+            raise RuntimeError("Test and reference clips must have the same number of frames")
+        self.frames = self._t.shape[0]
+        self.fps = fps
+        if color_space_name == "auto":
+            color_space_name = "BT.2020" if color_space == "2020" else "sRGB"
+        super().__init__(display_photometry=display_photometry,
+                         color_space_name=color_space_name)
+
+    def get_video_size(self):
+        fmt = self._formats[0]
+        return (fmt.height, fmt.width, self.frames)
+
+    def get_frames_per_second(self):
+        return self.fps
+
+    def _raw_pair(self, idx: np.ndarray):
+        if is_run(idx):
+            sl = slice(int(idx[0]), int(idx[-1]) + 1)
+            return self._t[sl], self._r[sl]
+        i = torch.as_tensor(idx, device=self.device)
+        return self._t.index_select(0, i), self._r.index_select(0, i)
+
+    def _raw_frame(self, side: int, frame: int) -> torch.Tensor:
+        return (self._t, self._r)[side][frame:frame + 1]
