@@ -20,7 +20,20 @@ Phases, each raising on failure:
      luminance stage bit for bit on a 32-frame 4K RGB block (planar) and on
      kadid-batch's chunk of 3,375 512x384 pairs (interleaved), beside its
      byte bound and the plain version, then its scalar arm, a grey block and
-     16-bit codes;
+     16-bit codes; the Y'CbCr stage (yuv_luminance) against its plain
+     version on the card (differing pixels, largest relative gap, one
+     launch): a seeded 60-frame 4K 10-bit 4:2:0 PQ BT.2020 pair (smooth
+     HDR content, the test side with noise), uniform random 10-bit codes on
+     a 32-frame 4K block (timed beside its byte bound, its
+     instruction-issue bound and the plain version), an 8-bit 4:2:0 sRGB
+     "BT.709" block, 12-bit 4:4:4 under a gamma of 2.2, 1918x1078 (odd
+     959x539 chroma, the masked arm), an indexed block with repeats and a
+     view off its vector alignment; then the 4K pair through
+     fvvdp_video_source_yuv_array and predict_video_source (two launches a
+     block and two for the temporal padding's frames, the JOD and Q_per_ch
+     of the plain conversion bit for bit) and a
+     1917x1079 pair in the sources' layout (w * h * 3 // 2 samples a frame;
+     the plain version, no launch);
   4. video: fvvdp(display_name="standard_4k").predict on bench.py's clip
      (3840x2160, 60 frames, 30 fps), JOD held to the PyTorch reference's
      9.7688 +- 0.01, warm wall time (median of 3), peak memory, block size
@@ -208,6 +221,12 @@ resident and host-resident; one JSON line.
 runs phases 1, 2 and phase 3's luminance cases only, and prints no result
 line.
 
+    python3 chip_smoke.py --yuv
+
+runs phases 1, 2 and phase 3's Y'CbCr (yuv_luminance) cases only, and
+prints no result line.  The kernel's own powf is held to powf by
+``tests/test_torch_yuv_luminance.py``'s ``gpu`` tests.
+
     python3 chip_smoke.py --traced
 
 runs phases 1, 2 and 8b only (the differentiable path), and prints no
@@ -282,7 +301,9 @@ from fovvideovdp_tpu_torch import native, run_fvvdp
 from fovvideovdp_tpu_torch.parallel import make_mesh
 from fovvideovdp_tpu_torch.parallel.sharding import split_rows
 from fovvideovdp_tpu_torch.ops.pyramid import K5
-from fovvideovdp_tpu_torch.video_source_yuv import yuv_block_to_luminance
+from fovvideovdp_tpu_torch.ops.cuda import yuv_luminance as yuv_op
+from fovvideovdp_tpu_torch.video_source_yuv import (yuv_block_to_luminance,
+                                                    yuv_block_to_luminance_plain)
 from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 
 H, W, N_FRAMES, FPS = 2160, 3840, 60, 30.0
@@ -337,13 +358,19 @@ SOURCES = {
     "luminance": dict(
         source="fovvideovdp_tpu_torch/csrc/luminance.cu",
         replaces="none (fovvideovdp_tpu/video_source.py:106, fused by XLA)", also_replaces=[]),
+    # no Pallas kernel: the JAX package jits the Y'CbCr conversion, fused by XLA
+    "yuv_luminance": dict(
+        source="fovvideovdp_tpu_torch/csrc/yuv_luminance.cu",
+        replaces="none (fovvideovdp_tpu/video_source_yuv.py:171, fused by XLA)",
+        also_replaces=[]),
 }
 # the path whose run gives each kernel's "launches" in the kernels line
 # (band_score2 is on no path of the package: it is held in phase 3 only)
 PATH_OF = {"gausspyr_reduce": "video", "expand_score2": "video", "temporal_pair": "video",
            "expand_contrast": "foveated_video", "band_score2_fov": "foveated_video",
            "band_score": "per_channel_video", "band_score2": None,
-           "mov_score": "moving_gaze_video", "luminance": "video"}
+           "mov_score": "moving_gaze_video", "luminance": "video",
+           "yuv_luminance": "yuv_file_video"}
 
 
 def synth_clip(h, w, n_frames):
@@ -826,6 +853,174 @@ def check_luminance(dev, dm, cases):
     torch.cuda.empty_cache()
 
 
+YUV_FRAMES = 32                  # the hdr10-4k-yuv cell's first block
+
+
+def yuv_case(raw, fmt, dm, rgb2y, main_path, note, cases, issue_rate):
+    """One Y'CbCr conversion of the raw (n, frame_samples) frames: the
+    kernel (through yuv_block_to_luminance, one launch) against the plain
+    version on the card, as the count of differing pixels and the largest
+    relative gap (target 0 and 0), timed beside its byte bound (the samples
+    read once, float32 written once), its instruction-issue bound (the SASS
+    instructions of the main instance, straight-line code nearly all of it
+    in the six powf a pixel, per 2 x 4 tile, over the card's warp issue
+    rate) and the plain version."""
+    w, h, bd, ss, bt2020 = fmt
+    args = dict(w=w, h=h, bd=bd, ss=ss, bt2020=bt2020, resize=None, rh=h, rw=w, dm=dm,
+                rgb2y=rgb2y)
+    cuda_ops.reset_launch_counts()
+    got = yuv_block_to_luminance(raw, **args)
+    launches = cuda_ops.launch_counts()["yuv_luminance"]
+    want = yuv_block_to_luminance_plain(raw, **args)
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    err = (got - want).abs().max().item()
+    gap = rel_err(got, want) if differ else 0.0
+    plan = yuv_op.launch_plan(raw, got, w, h)
+    del got, want
+    torch.cuda.empty_cache()
+    ms_k = time_ms(lambda: yuv_block_to_luminance(raw, **args), warmup=20)
+    plain_ms = time_ms(lambda: yuv_block_to_luminance_plain(raw, **args), runs=3, warmup=1)
+    px = raw.shape[0] * h * w
+    b_ms = (raw.numel() * raw.element_size() + 4 * px) / MEM_BYTES_PER_S * 1e3
+    sass = sass_counts("yuv_luminance", "yuv_luminance_kernel", _FLOAT4_PIXELS)
+    issue_ms = (plan.frame_tiles * raw.shape[0] / 32 * sass["212"]["total"] / issue_rate * 1e3
+                if sass and "212" in sass and main_path else None)
+    kind = yuv_op.photometry_params(dm).kind
+    add_row(cases, dict(
+        case="yuv_luminance", shape=[raw.shape[0], h, w], bits=bd, chroma=ss,
+        matrix="BT.2020" if bt2020 else "BT.709", photometry=kind,
+        arm="vector" if plan.vec else "masked",
+        grid=[plan.blocks, raw.shape[0]], note=note,
+        differing_pixels=differ, max_rel_gap=gap, max_abs_err=err, tolerance="bit for bit",
+        ok=differ == 0 and launches == 1, launches_per_call=launches, ms=ms_k,
+        plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by="bytes",
+        issue_bound_ms=issue_ms, share_of_bound=b_ms / ms_k, main_path=main_path),
+        f"{tuple(raw.shape)} ({note})")
+
+
+def hdr_pair(dev, w, h, n, seed):
+    """A seeded HDR10 pair in the sources' layout, (n, w * h * 3 // 2)
+    10-bit 4:2:0 codes as int16, made on the card: a panning smooth scene
+    over the narrow range (dark corners, highlights near code 940 and PQ's
+    1,500 cd/m^2), modest chroma; the test side with noise of +-12 codes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ch, cw = h // 2, w // 2
+    # the scene at a quarter of the size, upsampled, panned 3 pixels a frame
+    base = torch.rand((1, 1, h // 4 + 1, w // 4 + 1 + n), generator=g, device=dev)
+    base = torch.nn.functional.interpolate(base, scale_factor=4, mode="bicubic")[0, 0]
+    frames = torch.stack([base[:h, 4 * k // 3:4 * k // 3 + w] for k in range(n)])
+    y = (64 + 876 * frames.clamp(0, 1) ** 1.5).round()
+    u = 512 + 60 * (frames[:, ::2, ::2][:, :ch, :cw] - 0.5)
+    v = 512 - 40 * (frames[:, 1::2, 1::2][:, :ch, :cw] - 0.5)
+    ref = torch.cat([y.reshape(n, -1), u.round().reshape(n, -1), v.round().reshape(n, -1)], 1)
+    ref = torch.nn.functional.pad(ref, (0, w * h * 3 // 2 - ref.shape[1]), value=512)
+    noise = torch.randint(-12, 13, ref.shape, generator=g, device=dev)
+    test = (ref + noise).clamp(0, 1023)
+    return test.to(torch.int16), ref.to(torch.int16)
+
+
+def yuv_array_video(dev, pq, t, r, w, h, block_frames):
+    """(t, r) through fvvdp_video_source_yuv_array and predict_video_source:
+    the JOD, Q_per_ch, the launches and the warm seconds; the same with the
+    Y'CbCr stage held on its plain version."""
+    def run():
+        fv_pq = fvt.fvvdp(display_name="standard_hdr_pq", device=dev, block_frames=block_frames)
+        vs = fvt.fvvdp_video_source_yuv_array(t, r, FPS, w, h, display_photometry=pq,
+                                              color_space_name="BT.2020", device=dev)
+        return fv_pq.predict_video_source(vs)
+    (q, s), launches = counted(run)
+    _, warm_s = warm_seconds(run)
+    kernel_uses = yuv_op.uses_kernel
+    yuv_op.uses_kernel = lambda *a: False
+    try:
+        (q_plain, s_plain), plain_launches = counted(run)
+        _, plain_warm_s = warm_seconds(run)
+    finally:
+        yuv_op.uses_kernel = kernel_uses
+    if plain_launches["yuv_luminance"]:
+        raise AssertionError(f"the plain run launched yuv_luminance: {plain_launches}")
+    same = q == q_plain and np.array_equal(s["Q_per_ch"], s_plain["Q_per_ch"])
+    return q, same, launches, warm_s, plain_warm_s
+
+
+def check_yuv_luminance(dev, cases, issue_rate):
+    """The Y'CbCr stage against its plain version: both sides of a seeded
+    4K HDR10 pair (60 frames of 10-bit 4:2:0 PQ BT.2020), uniform random
+    codes over every 10-bit value (every clamp reached) on a 32-frame 4K
+    block, the main path's timing; then an 8-bit 4:2:0 sRGB "BT.709" block,
+    12-bit 4:4:4 under a gamma of 2.2, 1918x1078 (odd 959x539 chroma; the
+    masked arm), an indexed block with repeats and a view one sample off
+    its vector alignment.  Then the pair through the array source and
+    predict_video_source (two launches a block of 32 and two for the
+    temporal padding's indexed frames, the plain conversion's JOD and
+    Q_per_ch bit for bit), and a 1917x1079 pair, which keeps the plain
+    version."""
+    rgb2020 = fvt.video_source.rgb_to_y("BT.2020")
+    pq = fvt.fvvdp_display_photometry.load("standard_hdr_pq")
+    cell = (W, H, 10, "420", True)
+    t, r = hdr_pair(dev, W, H, N_FRAMES, 2**31 + 11)
+    for side, x in (("test", t), ("reference", r)):
+        yuv_case(x, cell, pq, rgb2020, False, f"4K HDR10 pair, {side}", cases, issue_rate)
+    q, same, launches, warm_s, plain_warm_s = yuv_array_video(dev, pq, t, r, W, H, 32)
+    emit(dict(phase="yuv_array_video", shape=[N_FRAMES, H, W], format="10-bit 4:2:0 PQ BT.2020",
+              block_frames=32, jod=q, jod_plain_stage="bit for bit" if same else "differs",
+              yuv_luminance_launches=launches["yuv_luminance"], warm_s=warm_s,
+              warm_s_plain_stage=plain_warm_s))
+    if not same or launches["yuv_luminance"] != 2 * (2 + 1):
+        raise AssertionError(f"yuv array video: JOD {q}, same as the plain stage: {same}, "
+                             f"launches {launches} (expected 2 a block of 32, 2 for the "
+                             f"padding)")
+    del t, r
+    w_odd, h_odd = 1917, 1079
+    t, r = hdr_pair(dev, w_odd, h_odd, 8, 2**31 + 12)
+    fv_pq = fvt.fvvdp(display_name="standard_hdr_pq", device=dev)
+    (q, _), launches = counted(lambda: fv_pq.predict_video_source(
+        fvt.fvvdp_video_source_yuv_array(t, r, FPS, w_odd, h_odd, display_photometry=pq,
+                                         color_space_name="BT.2020", device=dev)))
+    emit(dict(phase="yuv_array_odd_luma", shape=[8, h_odd, w_odd], frame_samples=t.shape[1],
+              jod=q, yuv_luminance_launches=launches["yuv_luminance"]))
+    if launches["yuv_luminance"] or not np.isfinite(q):
+        raise AssertionError(f"odd luma: JOD {q}, launches {launches} (expected the plain "
+                             f"version)")
+    del t, r
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def codes(n, fmt):
+        w, h, bd, ss, _ = fmt
+        x = torch.randint(0, 2 ** bd, (n, yuv_op.frame_samples(w, h, ss)), dtype=torch.int32,
+                          device=dev, generator=g)
+        return x.to(torch.int16 if bd > 8 else torch.uint8)
+    block = codes(YUV_FRAMES, cell)
+    yuv_case(block, cell, pq, rgb2020, True, "32-frame 4K block, random 10-bit codes", cases,
+             issue_rate)
+    idx = torch.tensor([5, 2, 2, 7, 30], device=dev)
+    yuv_case(block.index_select(0, idx), cell, pq, rgb2020, False,
+             "indexed block 5, 2, 2, 7, 30", cases, issue_rate)
+    buf = torch.empty(8 * block.shape[1] + 1, dtype=block.dtype, device=dev)
+    off = buf[1:].view(8, -1)
+    off.copy_(block[:8])
+    yuv_case(off, cell, pq, rgb2020, False, "one sample off the vector alignment", cases,
+             issue_rate)
+    del block, buf, off
+    sdr = fvt.fvvdp_display_photometry.load("standard_4k")
+    rgb709 = fvt.video_source.rgb_to_y("sRGB")
+    fmt = (W, H, 8, "420", False)
+    yuv_case(codes(8, fmt), fmt, sdr, rgb709, False, "8-bit 4:2:0 sRGB, BT.709 matrix", cases,
+             issue_rate)
+    fmt = (W, H, 12, "444", True)
+    gamma = fvt.fvvdp_display_photo_eotf(400, contrast=1000, EOTF="gamma", gamma=2.2)
+    yuv_case(codes(4, fmt), fmt, gamma, rgb2020, False, "12-bit 4:4:4, gamma 2.2", cases,
+             issue_rate)
+    fmt = (1918, 1078, 10, "420", True)
+    yuv_case(codes(8, fmt), fmt, pq, rgb2020, False, "1918x1078, odd 959x539 chroma", cases,
+             issue_rate)
+    emit(dict(phase="yuv_luminance_build", ptxas=[
+        line.strip() for line in _lib.build_log("yuv_luminance").splitlines()
+        if "yuv_luminance_kernel" in line or "Used" in line or "spill" in line]))
+    torch.cuda.empty_cache()
+
+
 def expect_launches(path, launches, must, must_not):
     """A path's own expectation: kernels that must launch, kernels that must not."""
     bad = [k for k in must if launches[k] <= 0] + [k for k in must_not if launches[k] != 0]
@@ -870,13 +1065,17 @@ def cut_luts(fv):
 _EX2 = lambda n: (lambda text: ("MUFU.EX2" in text) / n)
 _STORED_OUTPUTS = lambda text: (2 if text.startswith("STG.E.64") else
                                 1 if text.startswith("STG.E") else 0)
+_FLOAT4_PIXELS = lambda text: 4 if text.startswith("STG.E.128") else 0
 REDESIGNED = {"gausspyr_reduce": ("reduce", "reduce_kernel", "1", "", _STORED_OUTPUTS),
               "expand_score2": ("band_pipeline", "expand_score_kernel", "11", "", _EX2(4)),
               "mov_score": ("mov_score", "mov_score_kernel", "111", "", _EX2(4)),
               "band_score": ("band_score", "band_score_kernel", "101", "10", _EX2(2)),
               "band_score2": ("band_score", "band_score_kernel", "201", "20", _EX2(4)),
-              "band_score2_fov": ("band_score", "band_score_kernel", "211", "21", _EX2(4))}
-SASS_UNIT = {"gausspyr_reduce": "output"}
+              "band_score2_fov": ("band_score", "band_score_kernel", "211", "21", _EX2(4)),
+              # 16-bit samples, 4:2:0, PQ; a tile's two float4 stores hold its 8 pixels
+              "yuv_luminance": ("yuv_luminance", "yuv_luminance_kernel", "212", "",
+                                _FLOAT4_PIXELS)}
+SASS_UNIT = {"gausspyr_reduce": "output", "yuv_luminance": "pixel"}
 
 
 def _instance(symbol, function):
@@ -1267,9 +1466,10 @@ class LuminanceSource(fvt.fvvdp_video_source):
 def yuv_stage_seconds(paths, fv, dev, B):
     """The .yuv source's stages apart, for the pair at ``paths``: the native
     reader into a pinned buffer (host clock), the upload (host clock around
-    a synchronised copy), the plain conversion of one block pair on the card
-    (CUDA events, median of 10, beside its byte bound), and the scoring of
-    the converted clip from a source that holds it on the card."""
+    a synchronised copy), the conversion of one block pair on the card (the
+    yuv_luminance kernel; CUDA events, median of 10, beside its byte bound),
+    and the scoring of the converted clip from a source that holds it on the
+    card."""
     readers = [native.NativeYuvReader(p, W, H, 8, "420") for p in paths]
     n, fb = readers[0].frame_count, readers[0].frame_bytes
     # one staging buffer of a block pair; every source allocates two
@@ -1312,13 +1512,16 @@ def yuv_stage_seconds(paths, fv, dev, B):
                 convert_bound_by="bytes", score_s_runs=score_s[0], score_s_median=score_s[1])
 
 
-def file_source_phases(fv, test_v, ref_v, dev):
+def file_source_phases(fv, test_v, ref_v, dev, path_launches):
     """Phases 4d-4h.  The files live in a temporary directory that is deleted
     afterwards; the frame count is cut (and said so) where it lacks room for
-    the 4K pair."""
+    the 4K pair.  The Y'CbCr kernel converts the .yuv and piped frames; the
+    resized 10-bit pair (4g) and the packed source (4h) keep the plain
+    version."""
     video_must = ("gausspyr_reduce", "expand_score2", "temporal_pair")
     video_not = ("expand_contrast", "band_score", "band_score2", "band_score2_fov",
                  "mov_score")
+    yuv_must = video_must + ("yuv_luminance",)
     frame_bytes = H * W * 3 // 2
     with tempfile.TemporaryDirectory(prefix="fvvdp_smoke_") as tmp:
         free = shutil.disk_usage(tmp).free
@@ -1343,7 +1546,8 @@ def file_source_phases(fv, test_v, ref_v, dev):
         t0 = time.perf_counter()
         (q_yuv, s_yuv), launches = counted(from_files)
         first_s = time.perf_counter() - t0
-        expect_launches("yuv file video", launches, video_must, video_not)
+        expect_launches("yuv file video", launches, yuv_must, video_not)
+        path_launches["yuv_file_video"] = launches
         B = fv._pick_block_size(H, W, n)
         n_blocks = -(-n // B)
         n_levels = s_yuv["Q_per_ch"].shape[0]
@@ -1390,7 +1594,7 @@ def file_source_phases(fv, test_v, ref_v, dev):
                                                  device=dev)
                 return fv.predict_video_source(vs)
             (q_pipe, _), launches = counted(from_pipe)
-            expect_launches("ffmpeg pipe video", launches, video_must, video_not)
+            expect_launches("ffmpeg pipe video", launches, yuv_must, video_not)
             times, warm_s = warm_seconds(from_pipe)
         finally:
             os.environ["PATH"] = old_path
@@ -1431,7 +1635,8 @@ def file_source_phases(fv, test_v, ref_v, dev):
             t0 = time.perf_counter()
             (q, s), launches = counted(lambda: fv_pq.predict_video_source(vs))
             res[str(d)] = (q, s, time.perf_counter() - t0, launches)
-        expect_launches("10-bit PQ yuv", res[str(dev)][3], video_must, video_not)
+        expect_launches("10-bit PQ yuv", res[str(dev)][3], video_must,
+                        video_not + ("yuv_luminance",))
         q_card, q_cpu = res[str(dev)][0], res["cpu"][0]
         emit(dict(phase="yuv_10bit_pq_vs_cpu", shape=[1080, 1920, 8], resized_to=[2160, 3840],
                   jod=q_card, jod_cpu=q_cpu, tolerance="|dJOD| <= 1e-4",
@@ -1459,7 +1664,8 @@ def file_source_phases(fv, test_v, ref_v, dev):
         (q, _), launches = counted(lambda: fvt.fvvdp(display_name="standard_fhd", device=d)
                                    .predict_video_source(vs))
         res[str(d)] = (q, time.perf_counter() - t0, launches)
-    expect_launches("packed array", res[str(dev)][2], video_must, video_not)
+    expect_launches("packed array", res[str(dev)][2], video_must,
+                    video_not + ("yuv_luminance",))
     emit(dict(phase="packed_array_vs_cpu", shape=[1080, 1920, 8], jod=res[str(dev)][0],
               jod_cpu=res["cpu"][0], tolerance="|dJOD| <= 1e-4", wall_s=res[str(dev)][1],
               wall_s_cpu=res["cpu"][1], launches=res[str(dev)][2]))
@@ -1484,7 +1690,8 @@ GRAD_VS_CPU_L2_TOL = 1e-3
 CKPT_TOL = 1e-6           # the same, with and without use_checkpoints
 TRACED_JOD_TOL = 1e-4     # predict_traced against predict
 ALL_KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
-               "band_score", "band_score2", "band_score2_fov", "mov_score", "luminance")
+               "band_score", "band_score2", "band_score2_fov", "mov_score", "luminance",
+               "yuv_luminance")
 
 
 def lum_pair(h, w, frames=None, seed=0, noise=0.05):
@@ -2658,7 +2865,8 @@ def cli_extras_phase(dev, smi, test_v, ref_v, q_yuv=None):
     if rc != 0 or lines[-2:] != want or any("ckpt" in f for f in left):
         raise AssertionError(f"cli extras: exit {rc}, printed {lines}, expected {want}, "
                              f"files {left}")
-    expect_launches("cli extras", counts, MAIN_KERNELS, not_launched(MAIN_KERNELS))
+    must = MAIN_KERNELS + ("yuv_luminance",)
+    expect_launches("cli extras", counts, must, not_launched(must))
     return counts
 
 
@@ -3425,6 +3633,7 @@ def main():
     mesh_only = "--mesh" in sys.argv
     space_only = "--space" in sys.argv
     luminance_only = "--luminance" in sys.argv
+    yuv_only = "--yuv" in sys.argv
 
     # 1. device
     smi = nvidia_smi("name,power.limit")
@@ -3432,6 +3641,8 @@ def main():
     props = torch.cuda.get_device_properties(0)
     max_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sfu_rate = SFU_PER_SM_CLOCK * props.multi_processor_count * max_clock_mhz * 1e6
+    # warp instructions a second: four schedulers an SM, one each a clock
+    issue_rate = 4 * props.multi_processor_count * max_clock_mhz * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"device: {name}", flush=True)
@@ -3450,6 +3661,9 @@ def main():
     if luminance_only:
         check_luminance(dev, fvt.fvvdp(display_name="standard_4k").display_photometry,
                         dict(rows=[]))
+        return 0
+    if yuv_only:
+        check_yuv_luminance(dev, dict(rows=[]), issue_rate)
         return 0
     if traced_only:
         traced_phases(dev, smi)
@@ -3481,6 +3695,7 @@ def main():
               ms=time_ms(lambda: vs.get_luminance_block(0, B))))
     cases = dict(rows=[], n_levels=core.plan.height)
     check_luminance(dev, fv.display_photometry, cases)
+    check_yuv_luminance(dev, cases, issue_rate)
     check_temporal(ct, nt, cr, nr, taps, True, cases)
     empty = torch.empty((0, H, W), dtype=torch.float32, device=dev)
     check_temporal(empty, torch.cat([ct, nt]), empty, torch.cat([cr, nr]), taps,
@@ -3589,7 +3804,7 @@ def main():
     del frames
 
     # 4d-4h. file sources: .yuv, an ffmpeg pipe, the CLI, 10-bit PQ, packed
-    q_yuv = file_source_phases(fv, test_v, ref_v, dev)
+    q_yuv = file_source_phases(fv, test_v, ref_v, dev, path_launches)
     torch.cuda.empty_cache()
 
     # 5. image through the same entry point

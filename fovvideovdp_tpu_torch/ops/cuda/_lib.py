@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("gausspyr_reduce", "expand_score2", "temporal_pair", "expand_contrast",
-           "band_score", "band_score2", "band_score2_fov", "mov_score", "luminance")
+           "band_score", "band_score2", "band_score2_fov", "mov_score", "luminance",
+           "yuv_luminance")
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # y0, 1/dy, Ymin, Ymax, p, then the masking exponents and log2 scalars up to beta
@@ -86,6 +87,11 @@ _SIGNATURES = {
     # channel_stride, channels, element bytes, interleaved, vec, blocks (the
     # wrapper's launch plan), stream
     "luminance": ("luminance", "fvvdp_luminance", [_P, _P, _P] + [_L] * 6 + [_I] * 5 + [_P]),
+    # raw, out, tap weights, frames, frame_stride, W, H, element bytes,
+    # chroma420, kind, vec (the wrapper's launch plan), a host pointer to the
+    # float32 constants, add_black, stream
+    "yuv_luminance": ("yuv_luminance", "fvvdp_yuv_luminance",
+                      [_P] * 3 + [_L] * 2 + [_I] * 6 + [_P, _I, _P]),
 }
 
 _counts: Dict[str, int] = {k: 0 for k in KERNELS}

@@ -6,9 +6,11 @@ A block's raw planes are read by the native prefetching reader straight into
 a pinned staging buffer and go up to the card on a side stream
 (``video_source._HostBlocks``), the next block's read and transfer starting
 while this block is scored; chroma upsampling, YCbCr -> RGB, the optional
-full-screen resize, the EOTF and RGB -> Y then run on the device, one
-channel and a chunk of frames at a time.  ``reader="python"`` reads through
-``np.memmap`` instead of the native reader; nothing falls back to it.
+full-screen resize, the EOTF and RGB -> Y then run on the device: on a
+CUDA card without a resize as one kernel (``ops/cuda/yuv_luminance.py``),
+else in PyTorch, one channel and a chunk of frames at a time.
+``reader="python"`` reads through ``np.memmap`` instead of the native
+reader; nothing falls back to it.
 ``fvvdp_video_source_yuv_array`` takes the same raw frames already in
 memory (on the card, as a decoder leaves them) and converts them the same
 way.
@@ -25,6 +27,7 @@ import torch
 
 from fovvideovdp_tpu_torch.io import RESIZE_METHODS, resize as resize_planes
 from fovvideovdp_tpu_torch.io import yuv as yuv_io
+from fovvideovdp_tpu_torch.ops.cuda import yuv_luminance as yuv_kernel
 from fovvideovdp_tpu_torch.tracing import span
 from fovvideovdp_tpu_torch.video_source import (_HostBlocks, channels_to_luminance,
                                                 convert_frames, fvvdp_video_source_dm,
@@ -89,29 +92,46 @@ def yuv_block_to_luminance(raw: torch.Tensor, w: int, h: int, bd: int, ss: str,
                            bt2020: bool, resize, rh: int, rw: int, dm, rgb2y,
                            clip_before_resize: bool = True) -> torch.Tensor:
     """(n, frame_samples) raw fixed-point YUV -> (n, H', W') float32
-    luminance on raw's device: per chunk of frames, the planes decoded and
-    upsampled once, then each colour channel converted, clipped, resized,
-    clipped and taken through the EOTF in turn.  ``clip_before_resize`` is
-    the .yuv source's order; the ffmpeg pipe clips after the resize only.
+    luminance on raw's device.  Frames on a CUDA card, with no full-screen
+    resize that changes the size, 4:2:0 only at even luma sizes, and under
+    one of ``display_model``'s photometries, are one launch of the
+    ``yuv_luminance`` kernel, equal to the plain version bit for bit
+    (``ops/cuda/yuv_luminance.uses_kernel``); anything else takes the plain
+    version.
     Each call is one ``fvvdp.yuv`` span."""
     with span("fvvdp.yuv"):
-        Y, u, v = split_planes(raw, w, h, ss)
-        M = yuv_io.conversion_matrix(bt2020)
         resized = resize is not None and (h != rh or w != rw)
-        out_hw = (rh, rw) if resized else (h, w)
+        if yuv_kernel.uses_kernel(raw, w, h, ss, dm, resized):
+            return yuv_kernel.yuv_luminance(raw, w, h, bd, ss, bt2020, dm, rgb2y)
+        return yuv_block_to_luminance_plain(raw, w, h, bd, ss, bt2020, resize, rh, rw, dm,
+                                            rgb2y, clip_before_resize)
 
-        def chunk(i, j):
-            planes = yuv_io.decoded_planes(Y[i:j], u[i:j], v[i:j], bd, ss)
 
-            def channel(c):
-                x = yuv_io.rgb_channel(planes, M, c)
-                if clip_before_resize or not resized:
-                    x = torch.clamp(x, 0.0, 1.0)
-                if resized:
-                    x = torch.clamp(resize_planes(x, out_hw, RESIZE_METHODS[resize]), 0.0, 1.0)
-                return x
-            return channels_to_luminance(channel, dm, rgb2y)
-        return convert_frames(raw.shape[0], out_hw, max(h * w, rh * rw), raw.device, chunk)
+def yuv_block_to_luminance_plain(raw: torch.Tensor, w: int, h: int, bd: int, ss: str,
+                                 bt2020: bool, resize, rh: int, rw: int, dm, rgb2y,
+                                 clip_before_resize: bool = True) -> torch.Tensor:
+    """The conversion in PyTorch: per chunk of frames, the planes decoded
+    and upsampled once, then each colour channel converted, clipped,
+    resized, clipped and taken through the EOTF in turn.
+    ``clip_before_resize`` is the .yuv source's order; the ffmpeg pipe
+    clips after the resize only."""
+    Y, u, v = split_planes(raw, w, h, ss)
+    M = yuv_io.conversion_matrix(bt2020)
+    resized = resize is not None and (h != rh or w != rw)
+    out_hw = (rh, rw) if resized else (h, w)
+
+    def chunk(i, j):
+        planes = yuv_io.decoded_planes(Y[i:j], u[i:j], v[i:j], bd, ss)
+
+        def channel(c):
+            x = yuv_io.rgb_channel(planes, M, c)
+            if clip_before_resize or not resized:
+                x = torch.clamp(x, 0.0, 1.0)
+            if resized:
+                x = torch.clamp(resize_planes(x, out_hw, RESIZE_METHODS[resize]), 0.0, 1.0)
+            return x
+        return channels_to_luminance(channel, dm, rgb2y)
+    return convert_frames(raw.shape[0], out_hw, max(h * w, rh * rw), raw.device, chunk)
 
 
 class YUVReader:
