@@ -297,7 +297,7 @@ from fovvideovdp_tpu_torch.ops.cuda import luminance as lum_op
 from fovvideovdp_tpu_torch.ops.cuda import mov_score as ms
 from fovvideovdp_tpu_torch.ops.cuda import reduce as red
 from fovvideovdp_tpu_torch.ops.cuda import temporal as tmp
-from fovvideovdp_tpu_torch import native, run_fvvdp
+from fovvideovdp_tpu_torch import memory, native, run_fvvdp
 from fovvideovdp_tpu_torch.parallel import make_mesh
 from fovvideovdp_tpu_torch.parallel.sharding import split_rows
 from fovvideovdp_tpu_torch.ops.pyramid import K5
@@ -1029,6 +1029,24 @@ def expect_launches(path, launches, must, must_not):
                              f"(expected > 0: {must}; == 0: {must_not})")
 
 
+def picked_block(fv, h, w, n, moving=False, mesh=None):
+    """The frames per block ``fv.predict`` takes for an h x w clip of n
+    frames, with a gaze per frame (``moving``) or not, over ``mesh``."""
+    per_px = fv._get_core(w, h).bytes_per_px_frame(moving)
+    if mesh is not None:
+        return memory.mesh_block_size(h, w, n, per_px, mesh, fv.block_frames)
+    return memory.block_size(h, w, n, per_px, fv.device, block_frames=fv.block_frames)
+
+
+def picked_chunk(fv, h, w, n, item_frames):
+    """The items per chunk ``fv.predict_batch`` takes for n items of
+    ``item_frames`` frames (1: images)."""
+    per_px = fv._get_core(w, h, with_heatmap=False).bytes_per_px_frame(
+        False, images=item_frames == 1)
+    return memory.chunk_items(h, w, n, item_frames, per_px, fv.device,
+                              block_frames=fv.block_frames)
+
+
 def counted(fn):
     """fn() with the launch counts set to 0 just before and read just after."""
     cuda_ops.reset_launch_counts()
@@ -1230,7 +1248,7 @@ def first_block(fv, dev):
     carried window (ct, cr), the block's new frames (nt, nr), the temporal
     taps and the block size."""
     test_v, ref_v = synth_clip(H, W, N_FRAMES)
-    B = fv._pick_block_size(H, W, N_FRAMES)
+    B = picked_block(fv, H, W, N_FRAMES)
     vs = fvt.fvvdp_video_source_array(test_v, ref_v, FPS, dim_order="HWCF",
                                       display_photometry=fv.display_photometry,
                                       device=dev)
@@ -1548,7 +1566,7 @@ def file_source_phases(fv, test_v, ref_v, dev, path_launches):
         first_s = time.perf_counter() - t0
         expect_launches("yuv file video", launches, yuv_must, video_not)
         path_launches["yuv_file_video"] = launches
-        B = fv._pick_block_size(H, W, n)
+        B = picked_block(fv, H, W, n)
         n_blocks = -(-n // B)
         n_levels = s_yuv["Q_per_ch"].shape[0]
         want = dict(temporal_pair=n_blocks, gausspyr_reduce=n_levels * n_blocks,
@@ -2080,8 +2098,7 @@ def batch_images_phase(dev, smi, fv, test, ref):
     must = ("gausspyr_reduce", "expand_score2", "luminance")
     (jods, _), launches = counted(lambda: fv.predict_batch(test, ref, dim_order="BHWC"))
     expect_launches("batch_images", launches, must, not_launched(must))
-    chunk = fv._pick_chunk(IMG_H, IMG_W, IMG_N, 1, "fused",
-                           importlib.import_module("fovvideovdp_tpu_torch.fvvdp")._IMAGE_STACK_BYTES)
+    chunk = picked_chunk(fv, IMG_H, IMG_W, IMG_N, 1)
     n_chunks = -(-IMG_N // chunk)
     if launches["expand_score2"] != n_levels * n_chunks \
             or launches["gausspyr_reduce"] != n_levels * n_chunks:
@@ -2126,7 +2143,7 @@ def batch_clips_phase(dev, smi):
     (jods, stats), launches = counted(lambda: fv.predict_batch(test, ref, **call))
     expect_launches("batch_clips", launches, must, not_launched(must))
     fl = temporal_ops.filter_len_for_fps(FPS)
-    chunk = fv._pick_chunk(HD_H, HD_W, CLIP_N, CLIP_FRAMES + fl - 1, "fused")
+    chunk = picked_chunk(fv, HD_H, HD_W, CLIP_N, CLIP_FRAMES + fl - 1)
     if chunk < 1 or launches["temporal_pair"] != CLIP_N \
             or launches["expand_score2"] != n_levels * -(-CLIP_N // chunk):
         raise AssertionError(f"batch_clips: chunk {chunk}, {launches}: expected temporal_pair "
@@ -2216,8 +2233,7 @@ def ablation_video_phase(dev, smi, test_v, ref_v):
     q_pc = stats["Q_per_ch"]
     if not np.isfinite(q) or not np.all(q_pc[:, 1] == 0.0) or not np.all(np.isfinite(q_pc)):
         raise AssertionError(f"ablation 4K clip: JOD {q}, transient rows not 0")
-    chunk = fv._pick_chunk(H, W, N_FRAMES, 1, "fused",
-                           importlib.import_module("fovvideovdp_tpu_torch.fvvdp")._IMAGE_STACK_BYTES)
+    chunk = picked_chunk(fv, H, W, N_FRAMES, 1)
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2479,7 +2495,6 @@ def options_vs_cpu(dev, smi, tmp):
     images and predict_traced of one image under log contrast likewise."""
     test_v, ref_v = synth_clip(OPT_H, OPT_W, HEAT_FRAMES)
     video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
-    fvvdp_mod = importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
     out, bad = {}, {}
     luts = {d: mat_luts(tmp, d) for d in (dev, "cpu")}
     half = HEAT_FRAMES // 2
@@ -2506,11 +2521,12 @@ def options_vs_cpu(dev, smi, tmp):
                 peaks.append(torch.cuda.max_memory_allocated() - resident)
             fv.block_frames = None
             core = fv._get_core(OPT_W, OPT_H)
-            route = fvvdp_mod._memory_route(core, foveated and "fixed" not in group)
-            B = fv._pick_block_size(OPT_H, OPT_W, HEAT_FRAMES, route)
+            moving = foveated and "fixed" not in group
+            B = picked_block(fv, OPT_H, OPT_W, HEAT_FRAMES, moving)
         err = abs(jods[dev] - jods["cpu"])
         out[group] = dict(jod=jods[dev], jod_cpu=jods["cpu"], abs_err=err,
-                          jod_blocks_of_4=q_blocks[1], route=core.route, memory_route=route,
+                          jod_blocks_of_4=q_blocks[1], route=core.route,
+                          figure_bytes_per_px_frame=core.bytes_per_px_frame(moving),
                           block_frames=B, peak_bytes=peaks,
                           peak_bytes_per_px_frame=peaks[0] / (B * OPT_H * OPT_W),
                           block_bytes_per_px_frame=(peaks[0] - peaks[1])
@@ -2547,7 +2563,6 @@ def options_phase(dev, smi, test_v, ref_v):
     seconds), then every option group against the CPU.  Returns each
     configuration's launches."""
     video_kw = dict(dim_order="HWCF", frames_per_second=FPS)
-    fvvdp_mod = importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
     launches = {}
     for name, (kw, gaze, must) in OPT_CONFIGS.items():
         torch.cuda.synchronize()
@@ -2567,8 +2582,7 @@ def options_phase(dev, smi, test_v, ref_v):
             raise AssertionError(f"options {name}: JOD {q}, Q_per_ch {q_pc.shape}")
         if core._fov_table_cache or core.fov_table_bytes():
             raise AssertionError(f"options {name}: fixed-gaze tables were built")
-        route = fvvdp_mod._memory_route(core, gaze is not None)
-        B = fv._pick_block_size(H, W, N_FRAMES, route)
+        B = picked_block(fv, H, W, N_FRAMES, gaze is not None)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2576,7 +2590,9 @@ def options_phase(dev, smi, test_v, ref_v):
         peak = torch.cuda.max_memory_allocated() - resident
         emit(dict(phase="options", config=name, nvidia_smi=smi, jod=q, first_call_s=first_s,
                   warm_s_runs=times, warm_s_median=warm_s, fps=N_FRAMES / warm_s,
-                  route=core.route, memory_route=route, block_frames=B, peak_bytes=peak,
+                  route=core.route,
+                  figure_bytes_per_px_frame=core.bytes_per_px_frame(gaze is not None),
+                  block_frames=B, peak_bytes=peak,
                   peak_bytes_per_px_frame=peak / (B * H * W), launches=counts,
                   metric_build_s=build_s))
         del fv, core
@@ -2662,7 +2678,7 @@ def checkpoint_phase(dev, smi, test_v, ref_v):
         lambda: fv.predict_video_source(source()))
     if not abs(q_full - GOLDEN_SYNTH_Q) <= JOD_TOL:
         raise AssertionError(f"checkpoint phase: 4K clip JOD {q_full}")
-    B = fv._pick_block_size(H, W, N_FRAMES)
+    B = picked_block(fv, H, W, N_FRAMES)
     if B >= N_FRAMES:
         raise AssertionError(f"the 4K clip fits one block of {B}: nothing to resume")
     n_levels = s_full["Q_per_ch"].shape[0]
@@ -2969,7 +2985,7 @@ def mesh_video_phase(smi, test_v, ref_v, mesh):
     fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0")
     n_levels = fv._get_core(W, H).plan.height
     q_one, s_one = fv.predict(test_v, ref_v, dim_order="HWCF", frames_per_second=FPS)
-    B = fv._pick_mesh_block(H, W, N_FRAMES, mesh)
+    B = picked_block(fv, H, W, N_FRAMES, mesh=mesh)
     (q, s), totals, per_slot = counted_slots(lambda: fv.predict(
         test_v, ref_v, dim_order="HWCF", frames_per_second=FPS, mesh=mesh), mesh.size)
     subs = sub_blocks(B, N_FRAMES, mesh.size)
@@ -3041,9 +3057,7 @@ def mesh_clip_cases(smi, test_v, ref_v, mesh):
         fv = fvt.fvvdp(display_name="standard_4k", device="cuda:0", **kw)
         n_levels = fv._get_core(W, H).plan.height
         q_one, s_one = fv.predict(sub_t, sub_r, **call, **ckw)
-        B = fv._pick_mesh_block(H, W, MESH_FRAMES, mesh,
-                                fvvdp_module()._memory_route(
-                                    fv._get_core(W, H), case == "mesh_moving_gaze"))
+        B = picked_block(fv, H, W, MESH_FRAMES, case == "mesh_moving_gaze", mesh)
         t0 = time.perf_counter()
         (q, s), totals, per_slot = counted_slots(
             lambda: fv.predict(sub_t, sub_r, mesh=mesh, **call, **ckw), mesh.size)
@@ -3068,10 +3082,6 @@ def mesh_clip_cases(smi, test_v, ref_v, mesh):
         del fv, s, s_one
         torch.cuda.empty_cache()
     return launches
-
-
-def fvvdp_module():
-    return importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
 
 
 def mesh_batch_cases(smi, mesh):
@@ -3715,7 +3725,8 @@ def main():
     torch.cuda.synchronize()
     emit(dict(phase="fov_tables", seconds=time.perf_counter() - t0,
               bytes=core_fov.fov_table_bytes(), knots=int(fov_tabs[0][0].shape[0]),
-              cache_entries=core_fov._fov_cache_entries()))
+              cache_entries=memory.fov_cache_entries(core_fov.device,
+                                                     core_fov.fov_table_bytes())))
     fv_pc = fvt.fvvdp(display_name="standard_4k")
     fv_pc.load_state(fv_pc.parameters, cut_luts(fv_pc))
     check_band_scores(levels, fv_pc._get_core(W, H), core, core_fov, fov_tabs, sfu_rate,
@@ -3729,7 +3740,7 @@ def main():
     torch.cuda.empty_cache()
 
     # 4. video through the user's entry point
-    B = fv._pick_block_size(H, W, N_FRAMES)   # the block predict will take
+    B = picked_block(fv, H, W, N_FRAMES)   # the block predict will take
     path_launches = {}
     cuda_ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -3845,7 +3856,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     times, warm_s = warm_seconds(lambda: fv_fov.predict(test_v, ref_v, **video_kw))
     peak = torch.cuda.max_memory_allocated()
-    B_fov = fv_fov._pick_block_size(H, W, N_FRAMES, "banded")
+    B_fov = picked_block(fv_fov, H, W, N_FRAMES)
     src_s, score_s = split_timings(fv_fov, (test_v, ref_v, FPS), "HWCF", dev)
     emit(dict(phase="foveated_video", jod=q_fov, warm_s_runs=times, warm_s_median=warm_s,
               fps=N_FRAMES / warm_s, source_s_median=src_s, score_s_median=score_s,
@@ -3874,7 +3885,7 @@ def main():
     path_launches["moving_gaze_video"] = launches
     expect_launches("moving-gaze video", launches, mov_must + ("temporal_pair",), mov_not)
     core_mov = fv_mov._get_core(W, H)
-    B_mov = fv_mov._pick_block_size(H, W, N_FRAMES, "moving")
+    B_mov = picked_block(fv_mov, H, W, N_FRAMES, moving=True)
     n_blocks = -(-N_FRAMES // B_mov)
     if launches["mov_score"] != n_levels * n_blocks \
             or launches["expand_contrast"] != n_levels * n_blocks:
@@ -3972,7 +3983,7 @@ def main():
             or not abs(q_mh - q_mplain) <= 1e-3:
         raise AssertionError(f"moving-gaze heatmap: {hm.shape}, JOD {q_mh} (composed route) vs "
                              f"{q_mplain} (mov_score)")
-    B_mh = fv_mh._pick_block_size(H, W, n_h, "composed")
+    B_mh = picked_block(fv_mh, H, W, n_h, moving=True)
     times, warm_s = warm_seconds(
         lambda: fv_mh.predict(sub_t, sub_r, fixation_point=gaze_h, **video_kw))
     emit(dict(phase="moving_gaze_heatmap", frames=n_h, jod=q_mh, jod_kernel_route=q_mplain,
@@ -4073,7 +4084,7 @@ def main():
     q_plain, _ = fv.predict(sub_t, sub_r, **video_kw)
     if not abs(q_hv - q_plain) <= 1e-3:
         raise AssertionError(f"JOD with a device heatmap {q_hv} vs without {q_plain}")
-    B_h = fv_h._pick_block_size(H, W, n_h, "composed")
+    B_h = picked_block(fv_h, H, W, n_h)
     del hm, s_hv
     times, warm_s = warm_seconds(lambda: fv_h.predict(sub_t, sub_r, **video_kw))
     emit(dict(phase="heatmap_video", frames=n_h, jod=q_hv, jod_without=q_plain,
@@ -4090,7 +4101,7 @@ def main():
     peak = torch.cuda.max_memory_allocated()
     path_launches["per_channel_video"] = launches
     expect_launches("per-channel video", launches, pc_must + ("temporal_pair",), pc_not)
-    B_pc = fv_pc._pick_block_size(H, W, n_h, "banded")
+    B_pc = picked_block(fv_pc, H, W, n_h)
     n_blocks = -(-n_h // B_pc)
     if launches["band_score"] != 2 * core.plan.height * n_blocks:
         raise AssertionError(f"band_score launched {launches['band_score']} times, expected "

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from fovvideovdp_tpu_torch import csf as csf_mod
-from fovvideovdp_tpu_torch import utils
+from fovvideovdp_tpu_torch import memory, utils
 from fovvideovdp_tpu_torch.io import resize
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
@@ -54,6 +54,37 @@ from fovvideovdp_tpu_torch.visualize import visualize_diff_map_frames
 LOCAL_ADAPT = ("gpyr", "gpyr0", "gpyr2", "simple", "global")
 MASKING_MODELS = ("min_mutual_masking_perc_norm2", "contrast_difference",
                   "contrast_difference_perc_norm")
+
+
+# Device bytes a block of B frames at H x W keeps live, per pixel-frame, by
+# the route the core takes (MetricCore.route, and bytes_per_px_frame).
+# "fused": the (B, 4, H, W) float32 temporal responses (16 B), their
+# Gaussian pyramid (~5.3 B), the luminance pair and the decode temporaries.
+# "banded" adds one level's materialised contrast and L_bkg (20 B at level
+# 0); "composed" (heatmaps) adds the temporaries of the per-pixel
+# composition, every level's difference map, the reconstruction and the
+# rendered frames; "unfused" (the composition without a heatmap: the
+# options, a non-uniform Y grid) adds one level's band, L_bkg and the
+# composition's temporaries, and under "simple" the blurred plane beside
+# them.  "moving" (a gaze per frame through mov_score) holds what "banded"
+# holds, without resident tables; a gaze per frame on the composed route
+# adds one level's eccentricity maps and frame-sized temporaries to
+# "composed", which its figure covers (measured 116.4 B).
+# chip_smoke.py measures the peaks on the card at 4K (PERF.md, where the
+# time goes): 38.1, 64.8 and 118.9 B, for "moving" 59.8 B above what was on
+# the card before the call, and for "unfused" 115.0-118.9 B (phase 8d's 4K
+# configurations) with at most 122.6 B per pixel-frame of a block
+# ("simple", the peak's slope between blocks of 8 and 4 frames at 960x540);
+# the figures here are those rounded up.  A gaze per frame on the composed
+# route adds the trilinear CSF's passes, which csf._TRILINEAR_CHUNK caps at
+# ~0.7 GB whatever the block.
+_BLOCK_BYTES_PER_PX_FRAME = {"fused": 40, "banded": 68, "composed": 128, "moving": 68,
+                             "unfused": 128}
+# Bytes per pixel-frame a chunk of images holds on top of its route's: the
+# (n, 2, H, W) stack of the pair stays live beside the copy that adds the
+# zero transient planes (core.score_frames; foveated, each level's contrast
+# beside its zero-padded copy).
+_IMAGE_STACK_BYTES = 8
 
 
 def card(device) -> torch.device:
@@ -86,14 +117,6 @@ class MetricCore:
     (``content_mapping``, ``ignore_boundary_pixels``, ``band_callback``,
     and ``local_adapt``, ``contrast``, ``masking_model``, ``pu_dilate`` of
     ``params``) as the JAX package's core takes them."""
-
-    # Fixed-gaze table sets kept per core: as many as fit a quarter of the
-    # card's memory, between 1 and 8 (one 4K set is 1.68 GB, so an 80 GB
-    # card keeps 8; block sizing reads the free memory after they are
-    # built).  On the CPU, 2.
-    _FOV_CACHE_SHARE = 0.25
-    _FOV_CACHE_MAX = 8
-    _FOV_CACHE_CPU = 2
 
     def __init__(self, plan: PyramidPlan, params: Dict, luts: Sequence[Dict],
                  device, peak_luminance=None, geometry=None, foveated: bool = False,
@@ -221,6 +244,17 @@ class MetricCore:
             self._fov_meta = [self._score_meta(self._fov_lut or self.luts[0], bb)
                               for bb in range(plan.height)]
 
+    def bytes_per_px_frame(self, moving: bool, images: bool = False) -> int:
+        """Device bytes per pixel-frame a block (``images``: a chunk of
+        independent images or frames) keeps live when scored with a gaze
+        per frame (``moving``) or without (see ``_BLOCK_BYTES_PER_PX_FRAME``)."""
+        route = self.moving_route if moving else self.route
+        if moving and route == "banded":
+            route = "moving"
+        elif route == "composed" and not self.do_heatmap:
+            route = "unfused"
+        return _BLOCK_BYTES_PER_PX_FRAME[route] + (_IMAGE_STACK_BYTES if images else 0)
+
     def _score_meta(self, lut, bb: int) -> bs.ScoreMeta:
         """Scalars of band ``bb``'s score on the Y grid of ``lut``.  The
         per-band gain folds into the sensitivity correction: everything
@@ -250,25 +284,18 @@ class MetricCore:
             n = int(self.luts[0]["Y_log"].shape[0])
         return n * 2 * sum(int(r.numel()) for r in self._band_rho) * 4
 
-    def _fov_cache_entries(self) -> int:
-        if self.device.type != "cuda":
-            return self._FOV_CACHE_CPU
-        total = torch.cuda.get_device_properties(self.device).total_memory
-        fit = int(self._FOV_CACHE_SHARE * total // max(self.fov_table_bytes(), 1))
-        return max(1, min(self._FOV_CACHE_MAX, fit))
-
     def fov_tables(self, gaze_xy):
         """Per band, per channel (n, h, w) S_log(Y_log) tables for a fixed
         fixation point (x, y) in pixels: the LUT's (rho, ecc) axes are
         collapsed once here, so the per-frame foveated CSF costs the same
         as the non-foveated 1-D one.  Cached for the most recent fixation
-        points only (see ``_FOV_CACHE_SHARE``)."""
+        points only (see ``memory.FOV_CACHE_SHARE``)."""
         key = (float(gaze_xy[0]), float(gaze_xy[1]))
         cache = self._fov_table_cache
         if key in cache:                          # refresh its place
             cache[key] = cache.pop(key)
             return cache[key]
-        while len(cache) >= self._fov_cache_entries():
+        while len(cache) >= memory.fov_cache_entries(self.device, self.fov_table_bytes()):
             cache.pop(next(iter(cache)))
         gaze = torch.tensor([[key[0] + 0.5], [key[1] + 0.5]], dtype=torch.float32,
                             device=self.device)

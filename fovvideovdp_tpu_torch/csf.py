@@ -21,9 +21,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from fovvideovdp_tpu_torch import csf_generator, utils
+from fovvideovdp_tpu_torch import csf_generator, memory, utils
 from fovvideovdp_tpu_torch.ops.interp import interp3
-from fovvideovdp_tpu_torch.tracing import free_device_bytes
 
 LUT_FIELDS = ("Y", "rho", "ecc", "Y_log", "rho_log", "ecc_sqrt", "S_log")
 
@@ -266,19 +265,6 @@ def two_knots(u: torch.Tensor, n: int):
     return i0, torch.clamp(i0 + 1, max=n - 1), u - i0.to(u.dtype)
 
 
-def _pixel_chunk(n: int, device: torch.device) -> int:
-    """Pixels per chunk of :func:`reduce_lut_to_pixel_tables`.  The
-    (chunk, n, n) float32 intermediate takes 4 n^2 bytes per pixel (4 KB at
-    n = 32); on a card it may take an eighth of the free memory, on the
-    CPU 64 MB."""
-    per_px = 4 * n * n + 16 * n
-    if device.type == "cuda":
-        budget = free_device_bytes(device) // 8
-    else:
-        budget = 64 << 20
-    return int(max(1024, min(budget // per_px, 1 << 22)))
-
-
 def reduce_lut_to_pixel_tables(lut: Dict, rho, ecc: torch.Tensor) -> torch.Tensor:
     """Collapse the 3-D LUT over its (rho, ecc) axes with per-pixel static
     maps -> (n, h, w) plane-major S_log(Y_log) tables.
@@ -300,7 +286,7 @@ def reduce_lut_to_pixel_tables(lut: Dict, rho, ecc: torch.Tensor) -> torch.Tenso
 
     n = V.shape[0]
     N = rho_q.shape[0]
-    chunk = _pixel_chunk(n, dev)
+    chunk = memory.pixel_table_chunk(n, dev)
     u_r = _axis_uniform(lut, "rho_log")
     u_e = _axis_uniform(lut, "ecc_sqrt")
     out = torch.empty((N, n), dtype=torch.float32, device=dev)

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
-from fovvideovdp_tpu_torch import utils
+from fovvideovdp_tpu_torch import memory, utils
 from fovvideovdp_tpu_torch.core import MetricCore, card
 from fovvideovdp_tpu_torch.csf import CSFCache
 from fovvideovdp_tpu_torch.display_model import (fvvdp_display_geometry,
@@ -50,62 +50,12 @@ from fovvideovdp_tpu_torch.parallel.sharding import (make_batch_scorer, make_bat
                                                      make_mesh, replicas, score_video_mesh,
                                                      shard_image_fn, split_rows,
                                                      tables_on_cards)
-from fovvideovdp_tpu_torch.tracing import free_device_bytes, span
-from fovvideovdp_tpu_torch.video_source import (PairBatch, channels_to_luminance,
-                                                fvvdp_video_source_array, reshuffle_dims,
-                                                resolve_device, rgb_to_y)
-
-# Device bytes a block of B frames at H x W keeps live, per pixel-frame, by
-# the route the core takes (core.MetricCore.route, and _memory_route).
-# "fused": the (B, 4, H, W) float32 temporal responses (16 B), their
-# Gaussian pyramid (~5.3 B), the luminance pair and the decode temporaries.
-# "banded" adds one level's materialised contrast and L_bkg (20 B at level
-# 0); "composed" (heatmaps) adds the temporaries of the per-pixel
-# composition, every level's difference map, the reconstruction and the
-# rendered frames; "unfused" (the composition without a heatmap: the
-# options, a non-uniform Y grid) adds one level's band, L_bkg and the
-# composition's temporaries, and under "simple" the blurred plane beside
-# them.  "moving" (a gaze per frame through mov_score) holds what "banded"
-# holds, without resident tables; a gaze per frame on the composed route
-# adds one level's eccentricity maps and frame-sized temporaries to
-# "composed", which its figure covers (measured 116.4 B).
-# chip_smoke.py measures the peaks on the card at 4K (PERF.md, where the
-# time goes): 38.1, 64.8 and 118.9 B, for "moving" 59.8 B above what was on
-# the card before the call, and for "unfused" 115.0-118.9 B (phase 8d's 4K
-# configurations) with at most 122.6 B per pixel-frame of a block
-# ("simple", the peak's slope between blocks of 8 and 4 frames at 960x540);
-# the figures here are those rounded up.  A gaze per frame on the composed
-# route adds the trilinear CSF's passes, which csf._TRILINEAR_CHUNK caps at
-# ~0.7 GB whatever the block.
-_BLOCK_BYTES_PER_PX_FRAME = {"fused": 40, "banded": 68, "composed": 128, "moving": 68,
-                             "unfused": 128}
-# share of the free device memory a block may take
-_BLOCK_MEM_SHARE = 0.5
-# Past this, a longer block only holds more memory: the fl-1 carried frames
-# each block re-reads are already under a fifth of the temporal kernel's
-# input at 30 fps (7 of 39 frames), and the per-block launches are ~25.
-_MAX_BLOCK_FRAMES = 32
-# Independent frames (the images of a batch, the frames of the ablation,
-# whole clips of a batch) carry nothing between chunks, so a chunk is capped
-# by memory and by the launch plans alone: expand_contrast puts the frames
-# on grid.z, which takes at most 65535.
-_MAX_CHUNK_FRAMES = 65535
-# Bytes per pixel-frame a chunk of images holds on top of its route's: the
-# (n, 2, H, W) stack of the pair stays live beside the copy that adds the
-# zero transient planes (core.score_frames; foveated, each level's contrast
-# beside its zero-padded copy).
-_IMAGE_STACK_BYTES = 8
+from fovvideovdp_tpu_torch.ops.cuda.luminance import channels_to_luminance
+from fovvideovdp_tpu_torch.tracing import span
+from fovvideovdp_tpu_torch.video_source import (PairBatch, fvvdp_video_source_array,
+                                                reshuffle_dims, resolve_device, rgb_to_y)
 
 HEATMAP_TYPES = ("raw", "threshold", "supra-threshold", "monochromatic")
-
-
-def _memory_route(core: MetricCore, moving: bool) -> str:
-    """The key of ``_BLOCK_BYTES_PER_PX_FRAME`` for a block scored by
-    ``core``, with a gaze per frame (``moving``) or not."""
-    route = core.moving_route if moving else core.route
-    if moving and route == "banded":
-        return "moving"
-    return "unfused" if route == "composed" and not core.do_heatmap else route
 
 
 class fvvdp:
@@ -276,110 +226,6 @@ class fvvdp:
                 band_callback=self.band_callback)
         return self._cores[key]
 
-    def _free_device_bytes(self, device=None):
-        """The free memory of the card (the metric's by default), with what
-        the caching allocator holds but no tensor uses; None on the CPU."""
-        dev = self.device if device is None else device
-        if dev.type != "cuda":
-            return None
-        return (free_device_bytes(dev) + torch.cuda.memory_reserved(dev)
-                - torch.cuda.memory_allocated(dev))
-
-    def _slot_free_bytes(self, device=None, slots: int = 1):
-        """The free memory of ``device``'s card (the metric's by default)
-        that each of the ``slots`` slots of a mesh on it may count on; None
-        on the CPU."""
-        free = self._free_device_bytes() if device is None else self._free_device_bytes(device)
-        return None if free is None else free / slots
-
-    def _frames_by_memory(self, height: int, width: int, bytes_per_px_frame: int,
-                          device=None, slots: int = 1):
-        """Frames that half of the free device memory holds (a slot's share
-        of it on ``device``, see ``_slot_free_bytes``); None on the CPU."""
-        free = self._slot_free_bytes(device, slots)
-        if free is None:
-            return None
-        return int(_BLOCK_MEM_SHARE * free // (bytes_per_px_frame * height * width))
-
-    def _pick_block_size(self, height: int, width: int, n_frames: int,
-                         route: str = "fused", extra_bytes: int = 0, device=None,
-                         slots: int = 1) -> int:
-        """Frames per block: what half of the free device memory holds at
-        the route's bytes per pixel-frame plus ``extra_bytes`` (the raw
-        frames of the block a host-resident source prefetches).  Call it
-        after the fixed-gaze tables are built, so that the free memory
-        excludes them."""
-        if self.block_frames is not None:
-            return max(1, min(int(self.block_frames), n_frames))
-        by_mem = self._frames_by_memory(
-            height, width, _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes, device, slots)
-        if by_mem is None:
-            return min(_MAX_BLOCK_FRAMES, n_frames)
-        return max(1, min(by_mem, _MAX_BLOCK_FRAMES, n_frames))
-
-    def _pick_mesh_block(self, height: int, width: int, n_frames: int, mesh,
-                         route: str = "fused", extra_bytes: int = 0) -> int:
-        """Frames per block of a stream over a mesh, split over its slots:
-        ``block_frames`` rounded up to a multiple of the slot count (as the
-        JAX package rounds it, ``fovvideovdp_tpu/fvvdp.py:441-443``), else
-        each slot's share of its card's memory (the card's free memory
-        divided among the slots on it, as ``_pick_block_size`` sizes one
-        card's block) times the slot count."""
-        n = mesh.size
-        if self.block_frames is not None:
-            B = max(1, min(int(self.block_frames), n_frames))
-            return -(-B // n) * n
-        return n * min(self._pick_block_size(height, width, n_frames, route, extra_bytes, dev,
-                                             mesh.slots_on(dev)) for dev in set(mesh.slots))
-
-    def _pick_chunk(self, height: int, width: int, n_items: int, item_frames: int,
-                    route: str, extra_bytes: int = 0, device=None, slots: int = 1) -> int:
-        """Independent items per chunk: images, or whole clips whose padded
-        windows hold ``item_frames`` frames.  As many as ``block_frames``
-        frames hold, or half of the free device memory at the route's bytes
-        per pixel-frame plus ``extra_bytes``, up to ``_MAX_CHUNK_FRAMES``
-        frames.  0 when one clip's window does not fit: each clip then
-        streams.  Raises when not even one frame fits.  Call it after the
-        fixed-gaze tables are built."""
-        if self.block_frames is not None:
-            frames = max(1, int(self.block_frames))
-        else:
-            per_px = _BLOCK_BYTES_PER_PX_FRAME[route] + extra_bytes
-            frames = self._frames_by_memory(height, width, per_px, device, slots)
-            if frames is None:
-                frames = _MAX_CHUNK_FRAMES
-            elif frames < 1:
-                free = self._slot_free_bytes(device, slots)
-                raise RuntimeError(
-                    f"one {width}x{height} frame pair needs "
-                    f"{per_px * height * width / 2**30:.2f} GiB on the {route!r} route "
-                    f"({per_px} B per pixel-frame), over half of the card's free memory "
-                    f"({free / 2**30:.2f} GiB)")
-        return min(n_items, min(frames, _MAX_CHUNK_FRAMES) // item_frames)
-
-    def _device_heatmap_budget(self):
-        """Bytes a whole video's heatmap may hold on the device: half of the
-        card's free memory (no limit on the CPU)."""
-        if self.device.type != "cuda":
-            return None
-        return free_device_bytes(self.device) // 2
-
-    def _check_device_heatmap_budget(self, n_frames, height, width):
-        """Whole-video device heatmaps accumulate in device memory: refuse a
-        job that would exhaust it mid-video, before any scoring."""
-        budget = self._device_heatmap_budget()
-        channels = 1 if self.heatmap == "raw" else 3
-        elsize = 1 if self.heatmap_dtype == "uint8" else 2
-        est = n_frames * channels * height * width * elsize
-        if budget is not None and est > budget:
-            raise RuntimeError(
-                f"device_heatmap=True would accumulate ~{est / 2**30:.1f} GiB "
-                f"of heatmap in device memory ({n_frames} frames x {channels} "
-                f"x {height}x{width} {self.heatmap_dtype}), over half of the "
-                f"card's free memory ({budget / 2**30:.1f} GiB). Use "
-                f"device_heatmap=False to copy heatmap frames to the host "
-                f"block by block instead")
-
     @torch.no_grad()
     def predict_video_source(self, vid_source, fixation_point=None, mesh=None,
                              checkpoint_path=None, checkpoint_every=8):
@@ -461,10 +307,12 @@ class fvvdp:
                     raise ValueError(
                         f"fixation_point must be one (x, y) point or an (N, 2) array of "
                         f"per-frame points, got shape {fixation_point.shape}")
-            route = _memory_route(core, gaze is not None)
+            per_px = core.bytes_per_px_frame(gaze is not None)
             plan = core.plan
             if self.do_heatmap and self.device_heatmap:
-                self._check_device_heatmap_budget(N_frames, height, width)
+                memory.check_heatmap_budget(self.device, N_frames,
+                                            1 if self.heatmap == "raw" else 3, height, width,
+                                            self.heatmap_dtype)
             heat_blocks = []   # (b, c, H, W) per block: tensors, or arrays on the host
 
             def keep(heat):
@@ -495,13 +343,15 @@ class fvvdp:
                 # scored as an independent image, so no temporal kernel runs and
                 # the transient rows are exactly 0
                 staged = vid_source.host_block_bytes(1)
-                chunk = self._pick_chunk(height, width, N_frames, 1, route,
-                                         _IMAGE_STACK_BYTES + -(-staged // (height * width)))
+                chunk = memory.chunk_items(
+                    height, width, N_frames, 1,
+                    core.bytes_per_px_frame(gaze is not None, images=True)
+                    + -(-staged // (height * width)), self.device, block_frames=self.block_frames)
                 if staged:
                     # frames streamed from the host: the prefetched next chunk is
                     # on the card (counted above) and each chunk passes through a
                     # pinned buffer, so chunks stay a streamed block's size
-                    chunk = min(chunk, _MAX_BLOCK_FRAMES)
+                    chunk = min(chunk, memory.MAX_BLOCK_FRAMES)
                 Q_per_ch = core.score_frame_pairs(block, N_frames, chunk, fov_tables, gaze, keep)
             else:
                 fps = vid_source.get_frames_per_second()
@@ -521,7 +371,8 @@ class fvvdp:
 
                 pad_idx = temporal_ops.padding_indices(N_frames, fl, self.temp_padding)
                 if mesh is None:
-                    B = self._pick_block_size(height, width, N_frames, route, staged)
+                    B = memory.block_size(height, width, N_frames, per_px + staged, self.device,
+                                          block_frames=self.block_frames)
                     Q_per_ch = core.score_video(block, indexed, N_frames, taps, pad_idx, B,
                                                 fov_tables, gaze, keep, **resume)
                 else:
@@ -532,7 +383,8 @@ class fvvdp:
                             with span("fvvdp.luminance"):
                                 return tuple(self._encode(x.to(dev, torch.float32))
                                              for x in vid_source.luminance_at(idx, dev))
-                    B = self._pick_mesh_block(height, width, N_frames, mesh, route, staged)
+                    B = memory.mesh_block_size(height, width, N_frames, per_px + staged, mesh,
+                                               self.block_frames)
                     Q_per_ch = score_video_mesh(mesh, core, block, indexed, N_frames, taps, pad_idx,
                                                 B, tables, gaze, keep, frames_at=frames_at,
                                                 **resume)
@@ -725,7 +577,6 @@ class fvvdp:
                                   self.device, encode=self._encode)
 
             core = self._get_core(W, H, with_heatmap=False)
-            route = _memory_route(core, gaze_mode == "per_pair")
             fov_tables = gaze = None
             if gaze_mode == "tables":
                 if fixation_point is None:
@@ -743,10 +594,10 @@ class fvvdp:
             stats = {"width": W, "height": H, "N_frames": F, "N_pairs": N,
                      "frames_per_second": frames_per_second}
             if mesh is None:
-                jods, Q_per_ch = self._score_pairs(core, pairs, route, fov_tables, gaze)
+                jods, Q_per_ch = self._score_pairs(core, pairs, fov_tables, gaze)
             else:
                 jods, Q_per_ch = self._score_pairs_on_mesh(
-                    mesh, core, test_conts, reference_conts, dim_order, frames_per_second, N, route,
+                    mesh, core, test_conts, reference_conts, dim_order, frames_per_second, N,
                     fov_tables, gaze)
             jods = jods.cpu()
             if n_proc > 1:
@@ -760,27 +611,29 @@ class fvvdp:
                 stats["Q_per_ch"] = Q_per_ch.cpu().numpy()
             return jods.numpy(), stats
 
-    def _score_pairs(self, core: MetricCore, pairs, route: str, fov_tables, gaze,
-                     device=None, slots: int = 1):
+    def _score_pairs(self, core: MetricCore, pairs, fov_tables, gaze, device=None,
+                     slots: int = 1):
         """(JODs (N,), Q_per_ch (n_bands, 2, N, F) of clips or None) of the
-        pairs of ``pairs`` on ``core``'s device, chunks sized from that
-        card's memory shared by ``slots`` slots."""
+        pairs of ``pairs`` on ``device`` (the metric's by default), chunks
+        sized from that card's memory shared by ``slots`` slots."""
         N, _, F, H, W = pairs.shape
-        mem = dict(device=device, slots=slots)
+        per_px = core.bytes_per_px_frame(gaze is not None, images=F == 1)
+        mem = dict(device=self.device if device is None else device, slots=slots,
+                   block_frames=self.block_frames)
         if F == 1:
-            chunk = self._pick_chunk(H, W, N, 1, route, _IMAGE_STACK_BYTES, **mem)
+            chunk = memory.chunk_items(H, W, N, 1, per_px, **mem)
             return make_batch_scorer(core, pairs, chunk, self.parameters, fov_tables,
                                      None if gaze is None else gaze[:, 0]), None
         fps = pairs.fps
         fl = temporal_ops.filter_len_for_fps(fps)
         filt = temporal_ops.temporal_filters(fps, fl, self.sustained_sigma, self.sustained_beta)
-        chunk = self._pick_chunk(H, W, N, F + fl - 1, route, **mem)
-        block = 0 if chunk else self._pick_block_size(H, W, F, route, **mem)
+        chunk = memory.chunk_items(H, W, N, F + fl - 1, per_px, **mem)
+        block = 0 if chunk else memory.block_size(H, W, F, per_px, **mem)
         return make_batch_video_scorer(core, pairs, filt, self.parameters, chunk, block,
                                        self.temp_padding, fov_tables, gaze)
 
     def _score_pairs_on_mesh(self, mesh, core: MetricCore, test, reference, dim_order: str,
-                             fps, N: int, route: str, tables, gaze):
+                             fps, N: int, tables, gaze):
         """``_score_pairs`` over a mesh: slot k takes rows
         ``split_rows(N, mesh.size)[k]``, builds its own ``PairBatch`` of them
         on its card (so neither the raw batch nor its luminance is ever
@@ -799,7 +652,7 @@ class fvvdp:
                 pairs = PairBatch(PairBatch.rows(test, dim_order, a, b),
                                   PairBatch.rows(reference, dim_order, a, b), dim_order, fps,
                                   self.display_photometry, rgb2y, dev, encode=self._encode)
-                return self._score_pairs(cores[dev], pairs, route,
+                return self._score_pairs(cores[dev], pairs,
                                          None if tables is None else tables[dev],
                                          None if gaze is None else gaze[a:b].to(dev),
                                          dev, mesh.slots_on(dev))

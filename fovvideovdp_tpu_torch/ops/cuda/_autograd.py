@@ -23,8 +23,8 @@ without autograd.
 Ops whose plain version is separable over frames (axis 0 of every framed
 argument and of every output) recompute in chunks of frames, so that the
 autograd graph of the recompute holds a chunk's intermediates, not the
-block's: on a card, as many frames as half of the free memory holds at the
-op's ``graph_bytes`` per frame.
+block's: as many frames as ``memory.recompute_budget`` holds at the op's
+``graph_bytes`` per frame.
 """
 from __future__ import annotations
 
@@ -35,12 +35,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from fovvideovdp_tpu_torch.tracing import free_device_bytes
-
-# share of the free device memory one chunk of the recompute may take
-_RECOMPUTE_MEM_SHARE = 0.5
-# what a chunk may take on the CPU
-_CPU_RECOMPUTE_BYTES = 1 << 30
+from fovvideovdp_tpu_torch import memory
 
 
 class KernelOp(NamedTuple):
@@ -87,14 +82,7 @@ def recompute_frames(op: KernelOp, args: Sequence) -> Optional[int]:
     framed = [args[i] for i in op.framed]
     per_frame = op.graph_bytes * sum(t[0].numel() * t.element_size() for t in framed
                                      if t.shape[0] > 0)
-    dev = framed[0].device
-    if dev.type == "cuda":
-        # memory the caching allocator holds but no tensor uses is free too
-        free = (free_device_bytes(dev) + torch.cuda.memory_reserved(dev)
-                - torch.cuda.memory_allocated(dev))
-        budget = _RECOMPUTE_MEM_SHARE * free
-    else:
-        budget = _CPU_RECOMPUTE_BYTES
+    budget = memory.recompute_budget(framed[0].device)
     return max(1, int(budget // max(per_frame, 1.0)))
 
 

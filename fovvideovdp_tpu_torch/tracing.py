@@ -21,7 +21,7 @@ kernel wrapper (the device trace names the kernels):
 * ``fvvdp.yuv``: each conversion of a block of raw Y'CbCr frames
   (``video_source_yuv.yuv_block_to_luminance``), inside ``fvvdp.luminance``;
 * ``fvvdp.mem_query``: each query of the card's free memory
-  (:func:`free_device_bytes`);
+  (``memory.usable_bytes``, its one site);
 * ``fvvdp.pool``: the pooling to JOD;
 * ``fvvdp.gather``: the gather of results over the processes of a group.
 
@@ -44,10 +44,3 @@ def span(name: str):
         return _OFF
     return torch.autograd.profiler.record_function(name)
 
-
-def free_device_bytes(device) -> int:
-    """The free memory of ``device``'s card in bytes, as
-    ``torch.cuda.mem_get_info`` reads it: every query of the port goes
-    through here, under the ``fvvdp.mem_query`` span."""
-    with span("fvvdp.mem_query"):
-        return torch.cuda.mem_get_info(device)[0]

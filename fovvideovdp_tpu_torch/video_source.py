@@ -23,11 +23,10 @@ from typing import Callable, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from fovvideovdp_tpu_torch import utils
+from fovvideovdp_tpu_torch import memory, utils
 from fovvideovdp_tpu_torch.display_model import fvvdp_display_photometry
 from fovvideovdp_tpu_torch.ops.cuda import luminance as lum_op
-from fovvideovdp_tpu_torch.ops.cuda.luminance import channels_to_luminance
-from fovvideovdp_tpu_torch.tracing import free_device_bytes, span
+from fovvideovdp_tpu_torch.tracing import span
 
 
 def reshuffle_dims(arr: torch.Tensor, in_dims: str, out_dims: str) -> torch.Tensor:
@@ -202,8 +201,6 @@ _STORED_TYPES = (torch.uint8, torch.int16, torch.float16, torch.float32)
 # cost nothing beside its copy, small enough that two chunks' host copies
 # overlap the transfer from the first chunk on
 UPLOAD_CHUNK_BYTES = 32 << 20
-# share of the card's free memory the raw pair may take and stay resident
-DEVICE_PRELOAD_SHARE = 0.25
 
 
 def _as_stored(raw) -> torch.Tensor:
@@ -335,8 +332,8 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
     uint8/uint16/int16/float.  The raw pair is held on ``device`` while it
     takes at most ``DEVICE_PRELOAD_LIMIT_BYTES``, else on the host."""
 
-    # bytes of the raw pair above which it stays on the host; None: a quarter
-    # of the card's free memory (no limit on the CPU)
+    # bytes of the raw pair above which it stays on the host; None:
+    # memory.preload_limit's share of the card (no limit on the CPU)
     DEVICE_PRELOAD_LIMIT_BYTES: Optional[int] = None
 
     def __init__(self, test_video, reference_video, fps, dim_order="BCFHW",
@@ -376,7 +373,8 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
         on_card = isinstance(test_video, torch.Tensor) and test_video.device.type == "cuda"
         t, r = _as_stored(test_video), _as_stored(reference_video)
         self.resident = on_card or \
-            2 * t.numel() * t.element_size() <= self._preload_limit()
+            2 * t.numel() * t.element_size() <= memory.preload_limit(
+                self.device, self.DEVICE_PRELOAD_LIMIT_BYTES)
         self._blocks = None
         if self.resident:
             self._t = _upload_cfhw(t, dim_order, self.device)
@@ -388,18 +386,6 @@ class fvvdp_video_source_array(fvvdp_video_source_dm):
             self._r = reshuffle_dims(r, dim_order, "BCFHW")[0].contiguous()
             if self.device.type == "cuda":
                 self._blocks = _HostBlocks(self._fill, self._pair_bytes, self.device)
-
-    def _preload_limit(self) -> float:
-        return self.preload_limit(self.device)
-
-    @classmethod
-    def preload_limit(cls, device: torch.device) -> float:
-        """Bytes of raw frames above which they stay on the host."""
-        if cls.DEVICE_PRELOAD_LIMIT_BYTES is not None:
-            return cls.DEVICE_PRELOAD_LIMIT_BYTES
-        if device.type != "cuda":
-            return float("inf")
-        return DEVICE_PRELOAD_SHARE * free_device_bytes(device)
 
     def get_frames_per_second(self):
         return self.fps
@@ -543,7 +529,7 @@ class fvvdp_video_source_packed_array(fvvdp_video_source_dm):
             # bit_depth applies to the YUV layout only)
             max_value = 255.0 if from_array.dtype == np.uint8 else 65535.0
             RGB = (up(raw.astype(np.float32)) / max_value).permute(2, 0, 1)
-        L = channels_to_luminance(lambda c: RGB[c], self.dm_photometry,
+        L = lum_op.channels_to_luminance(lambda c: RGB[c], self.dm_photometry,
                                   self.color_to_luminance)
         return L[None, None, None]      # (1, 1, 1, H, W)
 
@@ -556,7 +542,8 @@ class PairBatch:
 
     A batch on the host goes to the device whole when the pair takes at most
     the array source's residency limit
-    (:meth:`fvvdp_video_source_array.preload_limit`); else it stays on the
+    (``fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES``, else
+    ``memory.preload_limit``); else it stays on the
     host and each chunk goes up when it is asked for, through the staged
     pinned copy.  A batch on the card is read where it is.  The checks and
     their words are ``fvvdp.predict_batch``'s in the JAX package.
@@ -577,8 +564,8 @@ class PairBatch:
         self._encode = encode or (lambda L: L)
         self._dims = dims
         if t.device.type == "cpu" and \
-                2 * t.numel() * t.element_size() <= fvvdp_video_source_array.preload_limit(
-                    self.device):
+                2 * t.numel() * t.element_size() <= memory.preload_limit(
+                    self.device, fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES):
             t, r = _upload_bcfhw(t, dims, self.device), _upload_bcfhw(r, dims, self.device)
             self._dims = "BCFHW"
         self._t, self._r = t, r

@@ -33,9 +33,9 @@ import torch
 from fovvideovdp_tpu_torch.io import RESIZE_METHODS, resize as resize_planes
 from fovvideovdp_tpu_torch.io import yuv as yuv_io
 from fovvideovdp_tpu_torch.io.images import load_image_as_array
-from fovvideovdp_tpu_torch.video_source import (_HostBlocks, channels_to_luminance,
-                                                convert_frames, fvvdp_video_source,
-                                                fvvdp_video_source_array,
+from fovvideovdp_tpu_torch.ops.cuda.luminance import channels_to_luminance
+from fovvideovdp_tpu_torch.video_source import (_HostBlocks, convert_frames,
+                                                fvvdp_video_source, fvvdp_video_source_array,
                                                 fvvdp_video_source_dm, host_tensor, is_run,
                                                 resolve_device)
 from fovvideovdp_tpu_torch.video_source_yuv import (READERS, fvvdp_video_source_yuv_file,

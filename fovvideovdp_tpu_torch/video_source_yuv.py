@@ -28,10 +28,11 @@ import torch
 from fovvideovdp_tpu_torch.io import RESIZE_METHODS, resize as resize_planes
 from fovvideovdp_tpu_torch.io import yuv as yuv_io
 from fovvideovdp_tpu_torch.ops.cuda import yuv_luminance as yuv_kernel
+from fovvideovdp_tpu_torch.ops.cuda.luminance import channels_to_luminance
 from fovvideovdp_tpu_torch.tracing import span
-from fovvideovdp_tpu_torch.video_source import (_HostBlocks, channels_to_luminance,
-                                                convert_frames, fvvdp_video_source_dm,
-                                                host_tensor, is_run, resolve_device)
+from fovvideovdp_tpu_torch.video_source import (_HostBlocks, convert_frames,
+                                                fvvdp_video_source_dm, host_tensor, is_run,
+                                                resolve_device)
 
 READERS = ("native", "python")
 

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import fovvideovdp_tpu_torch as fvt
+from fovvideovdp_tpu_torch import memory
 from fovvideovdp_tpu_torch.ops import temporal as ptemp
 from fovvideovdp_tpu_torch.ops.cuda import _autograd
 from fovvideovdp_tpu_torch.ops.cuda import band_pipeline as bp
@@ -287,7 +288,7 @@ def test_backward_recomputes_a_frame_at_a_time_on_a_small_budget(cores, name, mo
     fn, args, diff, _ = _case(name, cores)
     args = _torch_args(args)
     _, cot, want = _grad(fn, args, diff)
-    monkeypatch.setattr(_autograd, "_CPU_RECOMPUTE_BYTES", 1)
+    monkeypatch.setattr(memory, "CPU_RECOMPUTE_BYTES", 1)
     assert _autograd.recompute_frames(fn.op, args) == 1
     _, _, got = _grad(fn, args, diff, cot)
     for g, w in zip(got, want):
@@ -299,7 +300,7 @@ def test_recompute_frames_follows_the_budget(cores):
     args = _torch_args(args)
     per_frame = 5 * H * W * 4 + 2 * 4          # band, L_bkg and the gaze row
     frames = _autograd.recompute_frames(fn.op, args)
-    assert frames == int(_autograd._CPU_RECOMPUTE_BYTES // (ms.GRAPH_BYTES * per_frame))
+    assert frames == int(memory.CPU_RECOMPUTE_BYTES // (ms.GRAPH_BYTES * per_frame))
     assert _autograd.recompute_frames(tmp.temporal_pair.op, [args[1]] * 4) is None
     # a single (h, w) plane has no frame axis to cut
     x = torch.ones((H, W))

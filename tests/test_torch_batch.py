@@ -15,7 +15,7 @@ import torch
 
 import fovvideovdp_tpu as fv_jax
 import fovvideovdp_tpu_torch as fv_port
-from fovvideovdp_tpu_torch import csf, state
+from fovvideovdp_tpu_torch import csf, memory, state
 from fovvideovdp_tpu_torch.ops import masking as mask_ops
 from fovvideovdp_tpu_torch.video_source import (PairBatch, fvvdp_video_source_array,
                                                 rgb_to_y)
@@ -214,16 +214,19 @@ def test_predict_batch_mesh_names_its_item():
 
 def test_a_pair_that_cannot_fit_raises(monkeypatch):
     fv = fv_port.fvvdp(display_name="standard_fhd", device="cpu")
-    monkeypatch.setattr(fv, "_free_device_bytes", lambda: 2 * 40 * H * W - 1)
+    core = fv._get_core(W, H, with_heatmap=False)
+    clip, image = core.bytes_per_px_frame(False), core.bytes_per_px_frame(False, images=True)
+    assert (clip, image) == (40, 48)
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * 40 * H * W - 1)
     with pytest.raises(RuntimeError, match="over half of the card's free memory"):
         fv.predict_batch(_BAD, _BAD, dim_order="BHWC")
     # a clip's window that does not fit streams; a frame that fits is enough
-    monkeypatch.setattr(fv, "_free_device_bytes", lambda: 2 * 40 * H * W)
-    assert fv._pick_chunk(H, W, N, 11, "fused") == 0
-    assert fv._pick_block_size(H, W, F, "fused") == 1
-    monkeypatch.setattr(fv, "_free_device_bytes", lambda: 2 * 48 * H * W * 5)
-    assert fv._pick_chunk(H, W, 64, 1, "fused", 8) == 5
-    assert fv._pick_chunk(H, W, 3, 1, "fused", 8) == 3
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * 40 * H * W)
+    assert memory.chunk_items(H, W, N, 11, clip, fv.device) == 0
+    assert memory.block_size(H, W, F, clip, fv.device) == 1
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * 48 * H * W * 5)
+    assert memory.chunk_items(H, W, 64, 1, image, fv.device) == 5
+    assert memory.chunk_items(H, W, 3, 1, image, fv.device) == 3
 
 
 @pytest.mark.parametrize("limit", [0, None], ids=["host_chunks", "resident"])
@@ -369,9 +372,9 @@ def test_ablation_chunks_of_a_host_streamed_source(monkeypatch):
 
     vs = Streamed(tst, ref, 30, dim_order="HWCF", device="cpu")
     # 5 frames fit at 40 + 8 B per pixel-frame, 4 with the prefetch's 2 B
-    monkeypatch.setattr(fv, "_free_device_bytes", lambda: 2 * 48 * H * W * 5)
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * 48 * H * W * 5)
     q_small, _ = fv.predict_video_source(vs)
-    monkeypatch.setattr(fv, "_free_device_bytes", lambda: 2 * 48 * H * W * 1000)
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * 48 * H * W * 1000)
     q_big, _ = fv.predict_video_source(vs)
     assert chunks == [4, 32]
     assert abs(q_small - q_big) <= SELF_JOD

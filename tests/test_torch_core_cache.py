@@ -10,13 +10,12 @@ Bars: each step within |dJOD| <= 0.01 of the JAX package (the repo's bar,
 tests/test_metric_e2e.py:13) and 1e-6 of a fresh port metric, the heatmap's
 dtype equal.
 """
-import importlib
-
 import numpy as np
 import pytest
 import torch
 
-from fovvideovdp_tpu_torch import fvvdp
+from fovvideovdp_tpu_torch import core as core_mod
+from fovvideovdp_tpu_torch import fvvdp, memory
 from fovvideovdp_tpu_torch.core import MetricCore
 from fovvideovdp_tpu_torch.video_source import fvvdp_video_source_array
 
@@ -146,12 +145,11 @@ def test_the_streaming_block_counts_the_prefetched_block(monkeypatch, staged_per
     """The block size of the streaming loop charges the raw frames a
     host-resident source prefetches onto the card, beside the route's
     bytes per pixel-frame, as the ablation's chunks do."""
-    fvvdp_mod = importlib.import_module("fovvideovdp_tpu_torch.fvvdp")
     h, w, n = 32, 48, 40
-    per_px = fvvdp_mod._BLOCK_BYTES_PER_PX_FRAME["fused"] + staged_per_px
+    per_px = core_mod._BLOCK_BYTES_PER_PX_FRAME["fused"] + staged_per_px
     free = 2 * 20 * per_px * h * w          # half of it holds 20 frames
     fv = fvvdp(display_name="standard_fhd", device="cpu")
-    monkeypatch.setattr(fv, "_free_device_bytes", lambda: free)
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: free)
     picked = []
     real = MetricCore.score_video
 
@@ -168,7 +166,8 @@ def test_the_streaming_block_counts_the_prefetched_block(monkeypatch, staged_per
     assert picked == [20]
     # the route's bytes alone would hold more frames
     if staged_per_px:
-        assert fv._pick_block_size(h, w, n) > 20
+        assert memory.block_size(h, w, n, fv._get_core(w, h).bytes_per_px_frame(False),
+                                 fv.device) > 20
 
 
 @pytest.mark.gpu

@@ -20,7 +20,7 @@ from fovvideovdp_tpu.ops import pallas as pallas_cfg
 from fovvideovdp_tpu.ops import pyramid as jpyr
 from fovvideovdp_tpu.ops.pallas import band_score as jbs
 from fovvideovdp_tpu.ops.pallas import expand as jexpand
-from fovvideovdp_tpu_torch import csf, state, visualize
+from fovvideovdp_tpu_torch import csf, memory, state, visualize
 from fovvideovdp_tpu_torch.ops import pyramid
 from fovvideovdp_tpu_torch.ops.cuda import band_score as bs
 from fovvideovdp_tpu_torch.ops.cuda.expand_contrast import expand_contrast
@@ -234,7 +234,7 @@ def test_reduce_lut_to_pixel_tables_is_chunked(luts, monkeypatch):
     rho, ecc = torch.from_numpy(_rand((40, 50), 8, 30.0, 0.1)), \
         torch.from_numpy(_rand((40, 50), 9, 60.0))
     whole = csf.reduce_lut_to_pixel_tables(plut, rho, ecc)
-    monkeypatch.setattr(csf, "_pixel_chunk", lambda n, device: 333)
+    monkeypatch.setattr(memory, "pixel_table_chunk", lambda n, device: 333)
     np.testing.assert_array_equal(csf.reduce_lut_to_pixel_tables(plut, rho, ecc).numpy(),
                                   whole.numpy())
 

@@ -15,7 +15,7 @@ import torch
 import fovvideovdp_tpu as fv_jax
 import fovvideovdp_tpu_torch as fv_port
 from fovvideovdp_tpu.ops import pallas as pallas_cfg
-from fovvideovdp_tpu_torch import csf, state
+from fovvideovdp_tpu_torch import csf, memory, state
 
 torch.set_num_threads(2)
 
@@ -153,7 +153,7 @@ def test_table_cache_stays_bounded_and_is_dropped_with_the_state():
     test, ref, call = _content("image")
     pm = fv_port.fvvdp(display_name="htc_vive_pro", foveated=True, device="cpu")
     core = pm._get_core(160, 64)
-    limit = core._fov_cache_entries()
+    limit = memory.fov_cache_entries(core.device, core.fov_table_bytes())
     assert limit == 2
     knots = core._fov_trim[1] - core._fov_trim[0] + 1
     assert 4 <= knots < 32                       # the Y trim took hold

@@ -8,6 +8,7 @@ import torch
 
 import fovvideovdp_tpu as fv_jax
 import fovvideovdp_tpu_torch as fv_port
+from fovvideovdp_tpu_torch import memory
 
 torch.set_num_threads(2)
 
@@ -125,11 +126,12 @@ def test_heatmap_does_not_change_the_score(goldens):
 def test_device_heatmap_budget(goldens, monkeypatch):
     g = goldens("image_path_uint8")
     fv = fv_port.fvvdp(device="cpu", heatmap="threshold", device_heatmap=True)
-    assert fv._device_heatmap_budget() is None           # the CPU has no limit
-    monkeypatch.setattr(fv, "_device_heatmap_budget", lambda: 72 * 108 * 3 * 2 - 1)
+    assert memory.heatmap_budget(fv.device) is None           # the CPU has no limit
+    # half of the usable memory: one byte short of the (72, 108) map, then enough
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * (72 * 108 * 3 * 2 - 1))
     with pytest.raises(RuntimeError, match="device_heatmap=False"):
         fv.predict(g["test"], g["ref"], dim_order="HWC")
-    monkeypatch.setattr(fv, "_device_heatmap_budget", lambda: 72 * 108 * 3 * 2)
+    monkeypatch.setattr(memory, "usable_bytes", lambda device: 2 * 72 * 108 * 3 * 2)
     _, stats = fv.predict(g["test"], g["ref"], dim_order="HWC")
     assert tuple(stats["heatmap"].shape) == (1, 3, 1, 72, 108)
 

@@ -84,6 +84,27 @@ def test_package_sources_import_no_jax():
     assert not offenders, offenders
 
 
+def test_only_the_memory_module_queries_the_cards_memory():
+    """``memory.usable_bytes`` is the port's one query of a card's memory:
+    no other module names ``mem_get_info``, ``memory_reserved`` or
+    ``memory_allocated``."""
+    queries = {"mem_get_info", "memory_reserved", "memory_allocated"}
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for fn in files:
+            path = os.path.join(root, fn)
+            if not fn.endswith(".py") or path == os.path.join(PKG, "memory.py"):
+                continue
+            with open(path) as f:
+                tree = ast.parse(f.read(), filename=path)
+            for node in ast.walk(tree):
+                names = [getattr(node, "attr", None), getattr(node, "id", None)]
+                if isinstance(node, ast.ImportFrom):
+                    names += [a.name for a in node.names]
+                offenders += [(path, node.lineno, n) for n in names if n in queries]
+    assert not offenders, offenders
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 import fovvideovdp_tpu_torch as fv_port
-from fovvideovdp_tpu_torch import parallel
+from fovvideovdp_tpu_torch import memory, parallel
 from fovvideovdp_tpu_torch.ops import temporal as temporal_ops
 from fovvideovdp_tpu_torch.ops.cuda import _lib
 from fovvideovdp_tpu_torch.video_source import fvvdp_video_source, fvvdp_video_source_array
@@ -222,7 +222,8 @@ def test_streaming_with_a_frame_count_the_block_does_not_divide(dp):
     tst, ref = content()
     fv = fv_port.fvvdp(device="cpu", **kw)
     mesh = _mesh(dp)
-    assert fv._pick_mesh_block(H, W, F, mesh) == 8
+    per_px = fv._get_core(W, H).bytes_per_px_frame(False)
+    assert memory.mesh_block_size(H, W, F, per_px, mesh, fv.block_frames) == 8
     want = fv.predict(tst, ref, **call)
     got = fv.predict(tst, ref, mesh=mesh, **call)
     _check_self(got, want)

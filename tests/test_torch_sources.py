@@ -15,7 +15,7 @@ import torch
 import fovvideovdp_tpu as fv_jax
 import fovvideovdp_tpu_torch as fv_port
 from fovvideovdp_tpu.video_source import fvvdp_video_source as jax_source
-from fovvideovdp_tpu_torch import csf, state
+from fovvideovdp_tpu_torch import csf, memory, state
 from fovvideovdp_tpu_torch.video_source import fvvdp_video_source_array
 
 torch.set_num_threads(2)
@@ -211,7 +211,7 @@ def test_residency_limit_defaults_to_the_card(monkeypatch):
     test, ref = _encoded_clip()
     assert fvvdp_video_source_array.DEVICE_PRELOAD_LIMIT_BYTES is None
     vs = fvvdp_video_source_array(test, ref, FPS, dim_order="HWCF", device="cpu")
-    assert vs.resident and vs._preload_limit() == float("inf")
+    assert vs.resident and memory.preload_limit(vs.device) == float("inf")
     monkeypatch.setattr(fvvdp_video_source_array, "DEVICE_PRELOAD_LIMIT_BYTES",
                         2 * test.nbytes)
     assert fvvdp_video_source_array(test, ref, FPS, dim_order="HWCF", device="cpu").resident

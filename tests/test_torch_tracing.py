@@ -1,7 +1,8 @@
 """The port's spans (``fovvideovdp_tpu_torch.tracing``) on the CPU: a shared
 no-op without a profiler, ``record_function`` ranges on the profiler's clock
-with one, the stages of an entry call, the one free-memory query, and scores
-that a profiler leaves bit for bit as they are."""
+with one, the stages of an entry call, the one free-memory query
+(``memory.usable_bytes``), and scores that a profiler leaves bit for bit as
+they are."""
 import time
 
 import numpy as np
@@ -10,9 +11,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import fovvideovdp_tpu_torch as fv_port
-from fovvideovdp_tpu_torch import csf, tracing
+from fovvideovdp_tpu_torch import memory, tracing
 from fovvideovdp_tpu_torch.ops.cuda import _autograd
-from fovvideovdp_tpu_torch.video_source import DEVICE_PRELOAD_SHARE, fvvdp_video_source_array
 
 torch.set_num_threads(2)
 
@@ -153,31 +153,32 @@ class _CardTensor:
 
 
 FREE, RESERVED, ALLOCATED = 3 << 30, 5 << 20, 2 << 20
+USABLE = FREE + RESERVED - ALLOCATED
 CARD = torch.device("cuda", 0)
 # name: (query, what it returns for FREE, RESERVED and ALLOCATED)
 SITES = {
-    "fvvdp._free_device_bytes": (
-        lambda fv: fv._free_device_bytes(CARD), FREE + RESERVED - ALLOCATED),
-    "fvvdp._device_heatmap_budget": (
-        lambda fv: fv_port.fvvdp._device_heatmap_budget(type("M", (), {"device": CARD})),
-        FREE // 2),
-    "video_source.preload_limit": (
-        lambda fv: fvvdp_video_source_array.preload_limit(CARD), DEVICE_PRELOAD_SHARE * FREE),
-    "csf._pixel_chunk": (
-        lambda fv: csf._pixel_chunk(32, CARD), (FREE // 8) // (4 * 32 * 32 + 16 * 32)),
+    "memory.usable_bytes": (lambda: memory.usable_bytes(CARD), USABLE),
+    "memory.block_size": (lambda: memory.block_size(2160, 3840, 60, 40, CARD),
+                          int(0.5 * USABLE // (40 * 2160 * 3840))),
+    "memory.chunk_items": (lambda: memory.chunk_items(384, 512, 10125, 1, 48, CARD),
+                           int(0.5 * USABLE // (48 * 384 * 512))),
+    "memory.heatmap_budget": (lambda: memory.heatmap_budget(CARD), USABLE // 2),
+    "memory.preload_limit": (lambda: memory.preload_limit(CARD), 0.25 * USABLE),
+    "memory.pixel_table_chunk": (lambda: memory.pixel_table_chunk(32, CARD),
+                                 (USABLE // 8) // (4 * 32 * 32 + 16 * 32)),
     "_autograd.recompute_frames": (
-        lambda fv: _autograd.recompute_frames(
+        lambda: _autograd.recompute_frames(
             _autograd.KernelOp(None, None, (0,), (0,), 2.0), [_CardTensor()]),
-        int(_autograd._RECOMPUTE_MEM_SHARE * (FREE + RESERVED - ALLOCATED) // (2.0 * 24))),
+        int(0.5 * USABLE // (2.0 * 24))),
 }
 
 
 @pytest.mark.parametrize("site", list(SITES))
 def test_every_free_memory_query_is_one_span(monkeypatch, site):
-    """Each of the port's free-memory queries goes through
-    ``tracing.free_device_bytes``: one ``fvvdp.mem_query`` span, one
+    """Each of the port's memory budgets reads the card through
+    ``memory.usable_bytes``: one ``fvvdp.mem_query`` span, one
     ``torch.cuda.mem_get_info`` call, and the site's own arithmetic on the
-    free bytes."""
+    free bytes plus what the caching allocator holds unused."""
     queries = []
 
     def mem_get_info(device):
@@ -187,9 +188,8 @@ def test_every_free_memory_query_is_one_span(monkeypatch, site):
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: RESERVED)
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: ALLOCATED)
     query, expected = SITES[site]
-    fv = fv_port.fvvdp(display_name="standard_fhd", device="cpu")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        got = query(fv)
+        got = query()
     assert got == expected
     assert queries == [CARD]
     assert _names(_spans(prof)) == ["fvvdp.mem_query"]
