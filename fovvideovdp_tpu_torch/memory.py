@@ -2,11 +2,14 @@
 
 :func:`usable_bytes` is the port's one query of a card's memory; every other
 function turns a share of it (or of the card's total) into a size, with its
-own value off CUDA.  None keeps state: a mesh's slots call them from their
-threads."""
+own value off CUDA.  The one state is :func:`usable_bytes`'s last driver
+reading of each card, kept for the life of the process: one entry per card,
+replaced whole under a lock (a mesh's slots call these functions from their
+threads) whenever that card's reserved bytes no longer equal the entry's."""
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,15 +51,45 @@ FOV_CACHE_MAX = 8
 FOV_CACHE_CPU = 2
 
 
+# card index: (usable, reserved, allocated), the last driver reading of the
+# card and the allocator's two counters it was taken at
+_readings: Dict[int, Tuple[int, int, int]] = {}
+_readings_lock = threading.Lock()
+
+
 def usable_bytes(device) -> Optional[int]:
-    """The driver's free bytes of ``device``'s card (one ``fvvdp.mem_query``
-    span) plus what the caching allocator holds but no tensor uses, which it
-    hands out before it asks the driver; None off CUDA."""
+    """The driver's free bytes of ``device``'s card plus what the caching
+    allocator holds but no tensor uses, which it hands out before it asks
+    the driver; None off CUDA.
+
+    The driver is queried (one ``fvvdp.mem_query`` span) when the card has
+    no kept reading or when the allocator's reserved bytes differ from the
+    reading's: it then took memory from the driver or gave some back (a new
+    segment, ``empty_cache``, the release before an out-of-memory retry).
+    While they are equal, nothing this process allocates through the
+    allocator moves the driver's free bytes, so the kept reading less what
+    the allocator handed out since is what a query would return (one empty
+    ``fvvdp.mem_reuse`` span, no driver call).  Memory that something
+    outside this process's caching allocator takes or gives back on the card
+    meanwhile (another process, a library's own ``cudaMalloc``) shows only at
+    the next query, as it showed in a single query only up to the moment it
+    was made."""
     if device.type != "cuda":
         return None
+    card = torch.cuda.current_device() if device.index is None else device.index
+    kept = _readings.get(card)
+    if kept is not None and torch.cuda.memory_reserved(device) == kept[1]:
+        with span("fvvdp.mem_reuse"):
+            pass
+        return kept[0] - (torch.cuda.memory_allocated(device) - kept[2])
     with span("fvvdp.mem_query"):
         free = torch.cuda.mem_get_info(device)[0]
-    return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    reserved = torch.cuda.memory_reserved(device)
+    allocated = torch.cuda.memory_allocated(device)
+    reading = (free + reserved - allocated, reserved, allocated)
+    with _readings_lock:
+        _readings[card] = reading
+    return reading[0]
 
 
 def block_size(h: int, w: int, n_frames: int, per_px: int, device, slots: int = 1,

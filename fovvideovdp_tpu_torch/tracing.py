@@ -22,6 +22,10 @@ kernel wrapper (the device trace names the kernels):
   (``video_source_yuv.yuv_block_to_luminance``), inside ``fvvdp.luminance``;
 * ``fvvdp.mem_query``: each query of the card's free memory
   (``memory.usable_bytes``, its one site);
+* ``fvvdp.mem_reuse``: an empty span for each answer of
+  ``memory.usable_bytes`` served from its kept reading of the card, with no
+  query: the share of answers reused is
+  ``mem_reuse / (mem_reuse + mem_query)``;
 * ``fvvdp.pool``: the pooling to JOD;
 * ``fvvdp.gather``: the gather of results over the processes of a group.
 
