@@ -696,53 +696,57 @@ class fvvdp:
         JAX package wraps it in ``jax.checkpoint``.  When foveated, the
         fixation point (the centre by default; one (x, y) point, or one row
         per frame) is a gaze per frame, scored on the moving-gaze route."""
-        x_t = self._traced_input(test_cont, dim_order)
-        x_r = self._traced_input(reference_cont, dim_order)
-        B, C, F, H, W = x_t.shape
-        if B != 1:
-            raise RuntimeError("predict_traced supports batch size 1; "
-                               "use predict_batch for batches of pairs")
-        if F > 1 and frames_per_second <= 0:
-            raise RuntimeError(
-                "When passing video sequences, you must set 'frames_per_second' parameter")
-        rgb2y = rgb_to_y(self.color_space)
+        with span("fvvdp.predict_traced"):
+            x_t = self._traced_input(test_cont, dim_order)
+            x_r = self._traced_input(reference_cont, dim_order)
+            B, C, F, H, W = x_t.shape
+            if B != 1:
+                raise RuntimeError("predict_traced supports batch size 1; "
+                                   "use predict_batch for batches of pairs")
+            if F > 1 and frames_per_second <= 0:
+                raise RuntimeError(
+                    "When passing video sequences, you must set 'frames_per_second' parameter")
+            rgb2y = rgb_to_y(self.color_space)
 
-        def to_lum(x):                                       # (F, H, W)
-            if C == 3:
-                return channels_to_luminance(lambda c: x[0, c], self.display_photometry,
-                                             rgb2y)
-            return self.display_photometry.forward(x[0, 0])
+            def to_lum(x):                                       # (F, H, W)
+                if C == 3:
+                    return channels_to_luminance(lambda c: x[0, c], self.display_photometry,
+                                                 rgb2y)
+                return self.display_photometry.forward(x[0, 0])
 
-        lum_t, lum_r = self._encode(to_lum(x_t)), self._encode(to_lum(x_r))
-        core = self._get_core(W, H)
-        gaze = None
-        if self.foveated:
-            if fixation_point is None:
-                fixation_point = np.array([W // 2, H // 2])
-            fp = np.asarray(fixation_point, np.float32)
-            gaze = torch.tensor(np.broadcast_to(
-                fp.reshape(-1, 2)[-1:] if fp.ndim == 1 else fp, (F, 2)), device=self.device)
+            with span("fvvdp.luminance"):
+                lum_t = self._encode(to_lum(x_t))
+            with span("fvvdp.luminance"):
+                lum_r = self._encode(to_lum(x_r))
+            core = self._get_core(W, H)
+            gaze = None
+            if self.foveated:
+                if fixation_point is None:
+                    fixation_point = np.array([W // 2, H // 2])
+                fp = np.asarray(fixation_point, np.float32)
+                gaze = torch.tensor(np.broadcast_to(
+                    fp.reshape(-1, 2)[-1:] if fp.ndim == 1 else fp, (F, 2)), device=self.device)
 
-        score = core.score_frames
-        if self.use_checkpoints:
-            score = functools.partial(torch.utils.checkpoint.checkpoint, core.score_frames,
-                                      use_reentrant=False)
-        if F == 1:
-            Q_per_ch, _ = score(torch.stack([lum_t[0], lum_r[0]], dim=0)[None], 1,
-                                None, gaze)
-        else:
-            fl = temporal_ops.filter_len_for_fps(frames_per_second)
-            taps = torch.as_tensor(temporal_ops.temporal_filters(
-                frames_per_second, fl, self.sustained_sigma, self.sustained_beta),
-                device=self.device)
-            idx = torch.as_tensor(temporal_ops.padding_indices(F, fl, self.temp_padding),
-                                  dtype=torch.int64, device=self.device)
-            # the whole padded clip is the window: the kernel's carry is empty
-            empty = lum_t.new_empty((0, H, W))
-            R = temporal_ops.temporal_channels_pair(empty, lum_t[idx], empty, lum_r[idx],
-                                                    taps)
-            Q_per_ch, _ = score(R, 2, None, gaze)
-        return self.do_pooling_and_jods(Q_per_ch)
+            score = core.score_frames
+            if self.use_checkpoints:
+                score = functools.partial(torch.utils.checkpoint.checkpoint, core.score_frames,
+                                          use_reentrant=False)
+            if F == 1:
+                Q_per_ch, _ = score(torch.stack([lum_t[0], lum_r[0]], dim=0)[None], 1,
+                                    None, gaze)
+            else:
+                fl = temporal_ops.filter_len_for_fps(frames_per_second)
+                taps = torch.as_tensor(temporal_ops.temporal_filters(
+                    frames_per_second, fl, self.sustained_sigma, self.sustained_beta),
+                    device=self.device)
+                idx = torch.as_tensor(temporal_ops.padding_indices(F, fl, self.temp_padding),
+                                      dtype=torch.int64, device=self.device)
+                # the whole padded clip is the window: the kernel's carry is empty
+                empty = lum_t.new_empty((0, H, W))
+                R = temporal_ops.temporal_channels_pair(empty, lum_t[idx], empty, lum_r[idx],
+                                                        taps)
+                Q_per_ch, _ = score(R, 2, None, gaze)
+            return self.do_pooling_and_jods(Q_per_ch)
 
     def loss(self, test_cont, reference_cont, **kwargs) -> torch.Tensor:
         """Differentiable training loss: 10 - Q_JOD (0 when imperceptible)."""

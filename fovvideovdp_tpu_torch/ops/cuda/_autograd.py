@@ -25,17 +25,24 @@ argument and of every output) recompute in chunks of frames, so that the
 autograd graph of the recompute holds a chunk's intermediates, not the
 block's: as many frames as ``memory.recompute_budget`` holds at the op's
 ``graph_bytes`` per frame.
+
+Each backward is one ``fvvdp.vjp`` span (``tracing``), on the thread
+autograd runs it on, and is counted: :func:`vjp_counts` gives, per wrapper,
+the backwards run and the chunks their recompute took since
+:func:`reset_vjp_counts` (one chunk for an op recomputed all at once).
 """
 from __future__ import annotations
 
 import functools
 import inspect
-from typing import Callable, NamedTuple, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from fovvideovdp_tpu_torch import memory
+from fovvideovdp_tpu_torch.tracing import span
 
 
 class KernelOp(NamedTuple):
@@ -51,6 +58,29 @@ class KernelOp(NamedTuple):
     diff: Tuple[int, ...]
     framed: Optional[Tuple[int, ...]]
     graph_bytes: float
+
+
+# wrapper name: {"calls": backwards run, "chunks": recompute chunks}
+_vjp_counts: Dict[str, Dict[str, int]] = {}
+_vjp_lock = threading.Lock()
+
+
+def vjp_counts() -> Dict[str, Dict[str, int]]:
+    """Backwards and recompute chunks per wrapper since the last reset."""
+    with _vjp_lock:
+        return {k: dict(v) for k, v in _vjp_counts.items()}
+
+
+def reset_vjp_counts() -> None:
+    with _vjp_lock:
+        _vjp_counts.clear()
+
+
+def _count_vjp(op: KernelOp, chunks: int) -> None:
+    with _vjp_lock:
+        c = _vjp_counts.setdefault(op.run.__name__, {"calls": 0, "chunks": 0})
+        c["calls"] += 1
+        c["chunks"] += chunks
 
 
 def _outputs(out) -> tuple:
@@ -94,7 +124,9 @@ def vjp(op: KernelOp, args: Sequence, wrt: Sequence[int], grads: Sequence,
     is given."""
     n_frames = args[op.framed[0]].shape[0] if op.framed else 0
     if frames is None or frames >= n_frames:
+        _count_vjp(op, 1)
         return _vjp_once(op, args, wrt, grads)
+    _count_vjp(op, -(-n_frames // frames))
     out = [torch.empty_like(args[i]) for i in wrt]
     for f0 in range(0, n_frames, frames):
         sl = slice(f0, f0 + frames)
@@ -125,7 +157,8 @@ class _KernelFunction(torch.autograd.Function):
         wrt = [i for i in op.diff if ctx.needs_input_grad[1 + i]]
         out = [None] * (1 + len(args))
         if wrt:
-            got = vjp(op, args, wrt, grads, recompute_frames(op, args))
+            with span("fvvdp.vjp"):
+                got = vjp(op, args, wrt, grads, recompute_frames(op, args))
             for i, g in zip(wrt, got):
                 out[1 + i] = g
         return tuple(out)

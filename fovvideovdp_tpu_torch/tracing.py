@@ -10,14 +10,18 @@ thread nest by time, under the call's entry span.  The trace is the one
 export: run a call under ``torch.profiler.profile`` and read its events or
 ``export_chrome_trace``.
 
-The spans, all named ``fvvdp.<stage>`` and none inside a per-level loop or a
-kernel wrapper (the device trace names the kernels):
+The spans, all named ``fvvdp.<stage>`` and, but for ``fvvdp.vjp`` (one per
+kernel call of the forward), none inside a per-level loop or a kernel
+wrapper (the device trace names the kernels):
 
-* ``fvvdp.predict_video_source``, ``fvvdp.predict_batch``: each entry call;
+* ``fvvdp.predict_video_source``, ``fvvdp.predict_batch``,
+  ``fvvdp.predict_traced``: each entry call (``loss`` through
+  ``predict_traced``);
 * ``fvvdp.chunk``: one block of a video streamed on one card, or one chunk
   of independent frames, images or clips;
 * ``fvvdp.luminance``: raw frames to the luminance the core scores (a file
-  source's reader included);
+  source's reader included), or in ``predict_traced`` each side's float
+  frames to it;
 * ``fvvdp.yuv``: each conversion of a block of raw Y'CbCr frames
   (``video_source_yuv.yuv_block_to_luminance``), inside ``fvvdp.luminance``;
 * ``fvvdp.mem_query``: each query of the card's free memory
@@ -27,7 +31,12 @@ kernel wrapper (the device trace names the kernels):
   query: the share of answers reused is
   ``mem_reuse / (mem_reuse + mem_query)``;
 * ``fvvdp.pool``: the pooling to JOD;
-* ``fvvdp.gather``: the gather of results over the processes of a group.
+* ``fvvdp.gather``: the gather of results over the processes of a group;
+* ``fvvdp.vjp``: the backward of one kernel's ``torch.autograd.Function``
+  (``ops/cuda/_autograd.py``: its plain version's VJP, every recompute
+  chunk inside the one span), on the thread autograd runs it on; the
+  backward of the plain PyTorch around the kernels (the luminance, the
+  padding's gather, the pooling) carries no span.
 
 The slots of a mesh run in threads that a profiler started in the caller's
 thread does not follow; their stages carry no span.
